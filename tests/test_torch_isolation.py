@@ -1,0 +1,156 @@
+"""The port stands alone: no module of ``repro_torch`` and no line of
+``chip_smoke.py`` imports JAX or the JAX package; the entry points run on
+the card unless asked for the CPU (here, without a card, they raise); a
+wrapper given a non-CPU tensor launches its kernel or raises; and
+``chip_smoke.py``'s end-to-end function runs on the CPU at a tiny size,
+while the script itself fails without a card."""
+import ast
+import importlib.util
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from _torch_threads import one_torch_thread  # noqa: F401
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SMOKE = REPO / "chip_smoke.py"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [SMOKE]
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root == "jax" or root.startswith("jax") or root == "repro"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import json, pkgutil, importlib, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(json.dumps({'n': len(names), 'mods': sorted(sys.modules)}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=REPO,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["n"] >= 20
+    leaked = [m for m in got["mods"] if _forbidden(m)]
+    assert not leaked, leaked
+
+
+def _tiny_index():
+    from repro_torch import bridge
+    from repro_torch.core import tree
+    S = np.random.default_rng(0).standard_normal((300, 16)).astype(
+        np.float32).cumsum(1)
+    idx = tree.build_dstree(S, leaf_capacity=32)
+    return S, bridge.leafi_from_arrays(
+        index={"kind": idx.kind, "series": idx.series.numpy(),
+               "order": idx.order.numpy(),
+               "leaf_start": idx.leaf_start.numpy(),
+               "leaf_size": idx.leaf_size.numpy(),
+               "max_leaf_size": idx.max_leaf_size,
+               "n_series": idx.n_series, "length": idx.length,
+               "payload": {k: v.numpy() for k, v in idx.payload.items()}},
+        filter_params=None, leaf_ids=np.zeros(0, np.int64), tuner=None,
+        device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch import bridge
+    from repro_torch.core import build, search
+    S, lfi = _tiny_index()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build.build_leafi(S, build.LeaFiConfig(leaf_capacity=32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.search_batched(lfi.index, S[:2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lfi.search(S[:2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.leafi_from_arrays({}, None, [], None)
+    # asked for the CPU, the same calls run
+    assert lfi.search(S[:2], device="cpu").ids.shape == (2, 1)
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that does not lie on the CPU goes to the CUDA kernel: on a
+    machine without CUDA that raises instead of running the plain version."""
+    from repro_torch.kernels.filter_mlp import ops as mlp_ops
+    from repro_torch.kernels.l2_scan import ops as l2_ops
+    q = torch.empty((4, 8), device="meta")
+    with pytest.raises(RuntimeError):
+        l2_ops.pairwise_l2(q, q)
+    with pytest.raises(RuntimeError):
+        l2_ops.slab_l2(q[None], q[None], "pairwise")
+    w1 = torch.empty((2, 8, 8), device="meta")
+    v = torch.empty((2, 8), device="meta")
+    s = torch.empty((2,), device="meta")
+    with pytest.raises(RuntimeError):
+        mlp_ops.filter_predict_fused(w1, v, v, s, s, s, q)
+    with pytest.raises(NotImplementedError, match="1b"):
+        mlp_ops.filter_predict_fused(w1.bfloat16(), v, v.bfloat16(), s, s, s,
+                                     q)
+
+
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
+    smoke = _load_smoke()
+    out = smoke.run_end_to_end(n=2000, m=64, n_queries=16, n_brute=8,
+                               leaf_capacity=64, n_global=60, n_local=16,
+                               epochs=3, device="cpu")
+    assert len(out["results"]) == 16
+    assert set(out["launches"]) == {"pairwise_l2", "slab_l2",
+                                    "fused_filter_mlp"}
+    parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
+    assert parts["search"] > 0 and parts["replay"] > 0
+    printed = capsys.readouterr().out
+    assert "exact search == brute force on 8 queries" in printed
+    assert "target=per-query" in printed
+    assert "breakdown k=5 target=0.99" in printed
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_script_fails_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    script = SMOKE
+    if alone:                         # chip_smoke.py and nothing of the repo
+        script = tmp_path / "chip_smoke.py"
+        shutil.copy(SMOKE, script)
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, cwd=script.parent, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
