@@ -1,8 +1,13 @@
 """Summarization lower bounds (port of ``repro.core.bounds``).
 
-Plain torch in the reference's op order: the cascade compares these values
-with the best-so-far, so they must agree with the reference's to float
-tolerance.  Both bounds satisfy lb(q, leaf) ≤ min_{s ∈ leaf} d(q, s).
+``eapca_lower_bound`` and ``sax_lower_bound`` are plain torch in the
+reference's op order, and ``lower_bounds`` uses them on the CPU.  On the
+card it goes through the box lower-bound kernel (``kernels/box_lb``),
+which computes the same bounds after pre-scaling: the scaled differences
+round differently where a query lies close to a box edge (up to 2.2e-5
+relative on the CPU at test size), so the CPU keeps the reference's order
+and its values agree with the reference's to 1e-6.
+Both bounds satisfy lb(q, leaf) ≤ min_{s ∈ leaf} d(q, s).
 """
 from __future__ import annotations
 
@@ -10,6 +15,8 @@ import torch
 
 from . import summaries
 from .flat_index import FlatIndex
+from ..kernels.box_lb import ops as box_lb_ops
+from ..kernels.common import on_cpu
 
 
 def eapca_lower_bound(query_stats: torch.Tensor, boxes: torch.Tensor,
@@ -42,13 +49,18 @@ def sax_lower_bound(query_paa: torch.Tensor, edges: torch.Tensor,
 def lower_bounds(index: FlatIndex, queries: torch.Tensor) -> torch.Tensor:
     """All-leaves lower bounds for a batch of queries → (Q, L)."""
     queries = torch.atleast_2d(queries)
+    cpu = on_cpu(queries)
     if index.kind == "dstree":
         boxes = index.payload["eapca_box"]
-        seg_len = index.payload["seg_len"].float()
+        seg_len = index.payload["seg_len"]
         qstats = summaries.segment_stats(queries, boxes.shape[1])
-        return eapca_lower_bound(qstats, boxes, seg_len)
+        if cpu:
+            return eapca_lower_bound(qstats, boxes, seg_len.float())
+        return box_lb_ops.eapca_lb(qstats, boxes, seg_len)
     if index.kind == "isax":
         edges = index.payload["sax_edges"]
         qpaa = summaries.paa(queries, edges.shape[1])
-        return sax_lower_bound(qpaa, edges, index.length)
+        if cpu:
+            return sax_lower_bound(qpaa, edges, index.length)
+        return box_lb_ops.sax_lb(qpaa, edges, length=index.length)
     raise ValueError(index.kind)

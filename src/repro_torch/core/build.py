@@ -1,5 +1,6 @@
 """LeaFi-enhanced index building, paper Alg. 1 (port of
-``repro.core.build`` for the DSTree backbone with float32 MLP filters).
+``repro.core.build``: DSTree and iSAX backbones, MLP filters with float32,
+bfloat16 or int8 weight payloads).
 
     1. build the backbone tree on the host, move it to the card  [tree.py]
     2. select leaves for filter insertion                        [selection.py]
@@ -7,9 +8,11 @@
     4. train all filters (batched SGD)                           [filter_training.py]
     5. fit conformal auto-tuners on the calibration split        [conformal.py]
 
-Steps 3 and 5 run the pairwise, slab and fused filter kernels on the card.
-``build_report`` keeps each phase's wall time (host clock around a device
-synchronize).
+Steps 3 and 5 run the pairwise, slab, box lower-bound and fused filter
+kernels on the card.  ``build_report`` keeps each phase's wall time (host
+clock around a device synchronize).  :func:`requantize_leafi` swaps a built
+index's weight payload and refits the tuners on the stored calibration
+split.
 """
 from __future__ import annotations
 
@@ -27,9 +30,10 @@ from ..kernels.common import Device, resolve_device
 
 @dataclasses.dataclass
 class LeaFiConfig:
-    backbone: str = "dstree"          # "dstree" (iSAX: ROADMAP queue A)
+    backbone: str = "dstree"          # "dstree" | "isax"
     leaf_capacity: int = 256
     n_segments: int = 8               # dstree EAPCA segments
+    word_len: int = 8                 # isax word length
     # training data sizes; the paper uses n_q = 2000 with n_g/n_l = 3
     n_global: int = 600
     n_local: int = 200
@@ -39,7 +43,9 @@ class LeaFiConfig:
     t_filter_over_t_series: float = 279.0
     filter_memory_budget_bytes: int = 6 << 30
     hidden: Optional[int] = None
-    weight_dtype: str = "float32"     # float32 only (bf16/int8: queue B 1b)
+    # weight payload for inference: "float32" | "bfloat16" | "int8" (the
+    # fused filter kernel's three variants)
+    weight_dtype: str = "float32"
     train: filter_training.TrainConfig = dataclasses.field(
         default_factory=filter_training.TrainConfig)
     seed: int = 0
@@ -93,17 +99,22 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
     ``device="cpu"``.  Random draws come from a generator seeded with
     ``config.seed`` on the build device."""
     dev = resolve_device(device)
-    if config.backbone != "dstree":
-        raise NotImplementedError(
-            f"backbone={config.backbone!r}: the iSAX backbone is ROADMAP "
-            "queue A")
+    if config.backbone not in ("dstree", "isax"):
+        raise ValueError(f"unknown backbone {config.backbone!r}")
+    if config.weight_dtype not in filters.WEIGHT_BYTES_PER_EL:
+        raise ValueError(f"unknown weight_dtype {config.weight_dtype!r}")
     generator = torch.Generator(device=dev).manual_seed(config.seed)
     report: Dict[str, float] = {}
 
     # 0. backbone index (host), moved to the device
     t0 = time.perf_counter()
-    index = tree.build_dstree(series, config.leaf_capacity,
-                              config.n_segments).to(dev)
+    if config.backbone == "dstree":
+        index = tree.build_dstree(series, config.leaf_capacity,
+                                  config.n_segments)
+    else:
+        index = tree.build_isax(series, config.leaf_capacity,
+                                config.word_len)
+    index = index.to(dev)
     _sync(dev)
     report["t_index_build"] = time.perf_counter() - t0
 
@@ -159,3 +170,28 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
     report["t_calibrate"] = time.perf_counter() - t0
     report["calib_best_quality"] = float(cal_report["rank_quality"].max())
     return LeaFiIndex(index, params, leaf_ids, tuner, config, report, calib)
+
+
+def requantize_leafi(lfi: LeaFiIndex, weight_dtype: str, *,
+                     device: Device = None) -> LeaFiIndex:
+    """The same index with its filter weights in another payload dtype and
+    its tuners refit on the stored calibration split, so the offsets absorb
+    the quantization error.  The backbone tensors are shared, not copied.
+    ``device=None`` means the card; the index must live there."""
+    dev = resolve_device(device)
+    if lfi.index.device != dev:
+        raise ValueError(f"the index lives on {lfi.index.device}, the "
+                         f"requantization was asked to run on {dev}")
+    cfg = dataclasses.replace(lfi.config, weight_dtype=weight_dtype)
+    if lfi.filter_params is None:
+        return dataclasses.replace(lfi, config=cfg)
+    if lfi.calib is None:
+        raise ValueError("the index carries no calibration split: rebuild "
+                         "it with build_leafi to requantize it")
+    params = filters.quantize_mlp(lfi.filter_params, weight_dtype)
+    d_pred = search.predictions_for_all_leaves(
+        lfi.index, params, lfi.leaf_ids, lfi.calib.queries, offsets=None)
+    tuner, _ = conformal.fit_autotuners(lfi.calib.d_lb, d_pred,
+                                        lfi.calib.d_L, lfi.leaf_ids)
+    return dataclasses.replace(lfi, filter_params=params, tuner=tuner,
+                               config=cfg)

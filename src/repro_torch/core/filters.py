@@ -2,8 +2,10 @@
 
 Parameters are stacked on a leading filter axis F, so every filter trains
 and infers in one batched call.  Predictions are de-standardized with
-per-filter target statistics.  The CNN/RNN ablation filters and the
-bf16/int8 weight payloads are ROADMAP queue A.
+per-filter target statistics.  The weight matrices of a trained stack can
+be compressed to bfloat16 or int8 for inference; the fused filter kernel has
+a variant for each payload.  The CNN/RNN ablation filters are ROADMAP
+queue A.
 """
 from __future__ import annotations
 
@@ -56,14 +58,38 @@ def apply_mlp_raw(params: Params, queries: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_mlp(params: Params, weight_dtype: str = "float32") -> Params:
-    """Weight payload for inference.  float32 (a copy of the stack) is the
-    only payload of this slice; bf16/int8 are ROADMAP queue B row 1b."""
-    if weight_dtype != "float32":
-        raise NotImplementedError(
-            f"weight_dtype={weight_dtype!r} is ROADMAP queue B row 1b "
-            "(bf16/int8 variants of the fused filter kernel)")
-    return {k: v for k, v in params.items()
-            if k not in ("w1_scale", "w2_scale")}
+    """Weight payload for inference: the weight matrices in float32,
+    bfloat16 (round to nearest even) or int8 with one symmetric
+    max-abs/127 scale per filter per layer (``w1_scale``/``w2_scale``, (F,)
+    float32, rounded half to even and clamped to ±127).  Biases and target
+    statistics stay float32.  A quantized input is dequantized first."""
+    out = {k: v for k, v in params.items()
+           if k not in ("w1_scale", "w2_scale")}
+    w1, w2 = params["w1"], params["w2"]
+    if w1.dtype != torch.float32:
+        w1, w2 = mlp_ref.dequantize_weights(
+            w1, w2, params.get("w1_scale"), params.get("w2_scale"))
+    if weight_dtype == "float32":
+        out["w1"], out["w2"] = w1, w2
+    elif weight_dtype == "bfloat16":
+        out["w1"], out["w2"] = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    elif weight_dtype == "int8":
+        s1 = w1.abs().amax(dim=(1, 2)) / 127.0 + 1e-12
+        s2 = w2.abs().amax(dim=1) / 127.0 + 1e-12
+        out["w1"] = torch.clamp(torch.round(w1 / s1[:, None, None]),
+                                -127, 127).to(torch.int8)
+        out["w2"] = torch.clamp(torch.round(w2 / s2[:, None]),
+                                -127, 127).to(torch.int8)
+        out["w1_scale"], out["w2_scale"] = s1, s2
+    else:
+        raise ValueError(f"unknown weight_dtype {weight_dtype!r}")
+    return out
+
+
+def mlp_weight_dtype(params: Params) -> str:
+    """Weight payload of an MLP stack: "float32", "bfloat16" or "int8"."""
+    return {torch.float32: "float32", torch.bfloat16: "bfloat16",
+            torch.int8: "int8"}[params["w1"].dtype]
 
 
 def mlp_param_bytes(length: int, hidden: Optional[int] = None,

@@ -15,7 +15,7 @@ import torch
 
 @dataclasses.dataclass
 class FlatIndex:
-    kind: str                          # "dstree" (iSAX: ROADMAP queue A)
+    kind: str                          # "dstree" | "isax"
     series: torch.Tensor               # (n + max_leaf, m) leaf-sorted, padded
     order: torch.Tensor                # (n,) original id of sorted row i
     leaf_start: torch.Tensor           # (L,) int64

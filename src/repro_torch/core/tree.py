@@ -1,11 +1,17 @@
-"""Host-side DSTree builder (port of ``repro.core.tree.build_dstree``).
+"""Host-side tree builders for the two backbones (port of
+``repro.core.tree``).
 
 Index building is a one-off, data-dependent, pointer-chasing procedure; it
 runs in numpy on the host, as in the reference, and emits a
 :class:`FlatIndex` of CPU tensors for the caller to move to the card.
-Recursive binary splits on EAPCA segment statistics: split the segment whose
-mean or std range is widest, at the median.  The iSAX builder is ROADMAP
-queue A.
+
+* ``build_dstree``: recursive binary splits on EAPCA segment statistics
+  (split the segment whose mean or std range is widest, at the median).
+* ``build_isax``: a prefix trie over SAX words; the root's children bucket
+  the series on the top bit of every dimension, and a node splits by
+  promoting one more bit of the least-refined dimension that separates its
+  series (iSAX2/MESSI style).  A node no promotion can split stays an
+  oversized leaf.
 """
 from __future__ import annotations
 
@@ -18,11 +24,16 @@ import torch
 from . import summaries
 from .flat_index import FlatIndex
 
+#: iSAX cardinality bits per dimension at the deepest promotion
+MAX_CARD_BITS = 8
+
 
 @dataclasses.dataclass
 class _Node:
     ids: np.ndarray                       # indices into the collection
     children: Optional[List["_Node"]] = None
+    sax_word: Optional[np.ndarray] = None   # isax: (l,) symbols at node card
+    sax_bits: Optional[np.ndarray] = None   # isax: (l,) cardinality bits
 
     @property
     def is_leaf(self) -> bool:
@@ -68,7 +79,73 @@ def build_dstree(series: np.ndarray, leaf_capacity: int = 256,
         node.ids = np.empty(0, np.int64)
         stack += [lo, hi]
 
-    return _flatten(series, stats, _collect_leaves(root), n_segments)
+    leaves = _collect_leaves(root)
+    boxes = np.stack([summaries.eapca_node_box(stats[lf.ids])
+                      for lf in leaves])                      # (L, s, 4)
+    seg_len = np.full(n_segments, -(-m // n_segments), np.int32)
+    return _flatten(series, leaves, "dstree", {"eapca_box": boxes,
+                                               "seg_len": seg_len})
+
+
+def build_isax(series: np.ndarray, leaf_capacity: int = 256,
+               word_len: int = 8) -> FlatIndex:
+    """Z-normalize ``series`` (n, m) and index its SAX words of ``word_len``
+    dimensions in a trie with leaves of at most ``leaf_capacity`` series,
+    unless ``MAX_CARD_BITS`` bits per dimension cannot separate them."""
+    series = summaries.znormalize(torch.from_numpy(
+        np.ascontiguousarray(series, np.float32)))
+    paa = summaries.paa(series, word_len)                     # (n, l)
+    series = series.numpy()
+    # symbols at the maximum cardinality; a node's symbol at b bits is the
+    # top b bits of the max-cardinality symbol (cardinality promotion)
+    sym_max = summaries.sax_from_paa(paa, MAX_CARD_BITS).numpy()
+
+    # root children: one bit on every dimension; ids stay ascending
+    top = sym_max >> (MAX_CARD_BITS - 1)
+    words, inverse = np.unique(top, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    by_word = np.argsort(inverse, kind="stable")
+    cuts = np.cumsum(np.bincount(inverse, minlength=len(words)))[:-1]
+    root = _Node(ids=np.empty(0, np.int64), children=[])
+    for w, ids in zip(words, np.split(by_word, cuts)):
+        root.children.append(_Node(ids=ids, sax_word=w.astype(np.int32),
+                                   sax_bits=np.ones(word_len, np.int64)))
+    stack = list(root.children)
+    while stack:
+        node = stack.pop()
+        if len(node.ids) <= leaf_capacity:
+            continue
+        # promote the dimension with the fewest bits whose next bit
+        # separates the node's series
+        split_dim, bit = -1, None
+        for d in np.argsort(node.sax_bits, kind="stable"):
+            if node.sax_bits[d] >= MAX_CARD_BITS:
+                continue
+            b = node.sax_bits[d] + 1
+            bit = (sym_max[node.ids, d] >> (MAX_CARD_BITS - b)) & 1
+            if 0 < bit.sum() < len(bit):
+                split_dim = int(d)
+                break
+        if split_dim < 0:                 # cannot separate: oversized leaf
+            continue
+        bits = node.sax_bits.copy()
+        bits[split_dim] += 1
+        node.children = []
+        for side in (0, 1):
+            ids = node.ids[bit == side]
+            word = (sym_max[ids[0]] >> (MAX_CARD_BITS - bits)).astype(
+                np.int32)
+            child = _Node(ids=ids, sax_word=word, sax_bits=bits.copy())
+            node.children.append(child)
+            stack.append(child)
+        node.ids = np.empty(0, np.int64)
+
+    leaves = _collect_leaves(root)
+    words = np.stack([lf.sax_word for lf in leaves]).astype(np.int32)
+    bits = np.stack([lf.sax_bits for lf in leaves]).astype(np.int32)
+    return _flatten(series, leaves, "isax", {
+        "sax_word": words, "sax_bits": bits,
+        "sax_edges": summaries.sax_symbol_edges(words, bits)})
 
 
 def _collect_leaves(root: _Node) -> List[_Node]:
@@ -86,8 +163,8 @@ def _collect_leaves(root: _Node) -> List[_Node]:
     return out
 
 
-def _flatten(series: np.ndarray, stats: np.ndarray, leaves: List[_Node],
-             n_segments: int) -> FlatIndex:
+def _flatten(series: np.ndarray, leaves: List[_Node], kind: str,
+             payload: dict) -> FlatIndex:
     n, m = series.shape
     order = np.concatenate([lf.ids for lf in leaves]).astype(np.int64)
     sizes = np.asarray([len(lf.ids) for lf in leaves], np.int64)
@@ -97,11 +174,8 @@ def _flatten(series: np.ndarray, stats: np.ndarray, leaves: List[_Node],
     # in bounds; padded rows are masked with +inf by every distance pass.
     sorted_series = np.concatenate(
         [series[order], np.zeros((max_leaf, m), np.float32)], axis=0)
-    boxes = np.stack([summaries.eapca_node_box(stats[lf.ids])
-                      for lf in leaves])                      # (L, s, 4)
-    seg_len = np.full(n_segments, -(-m // n_segments), np.int32)
     return FlatIndex(
-        kind="dstree",
+        kind=kind,
         series=torch.from_numpy(sorted_series),
         order=torch.from_numpy(order),
         leaf_start=torch.from_numpy(starts),
@@ -109,6 +183,5 @@ def _flatten(series: np.ndarray, stats: np.ndarray, leaves: List[_Node],
         max_leaf_size=max_leaf,
         n_series=n,
         length=m,
-        payload={"eapca_box": torch.from_numpy(boxes),
-                 "seg_len": torch.from_numpy(seg_len)},
+        payload={k: torch.from_numpy(v) for k, v in payload.items()},
     )

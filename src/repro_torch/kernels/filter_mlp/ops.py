@@ -2,9 +2,8 @@
 ``repro.kernels.filter_mlp.ops.filter_predict_fused``).
 
 For CPU tensors the plain composition in ``ref.py`` runs; for CUDA tensors
-the hand-written fused kernel launches or the call raises.  The card takes
-float32 weights only in this slice: bf16/int8 payloads are ROADMAP queue B
-row 1b.
+the hand-written fused kernel launches (its float32, bfloat16 or int8
+variant, by ``w1.dtype``) or the call raises.
 """
 from __future__ import annotations
 
@@ -28,19 +27,16 @@ def filter_predict_fused(w1: torch.Tensor, b1: torch.Tensor,
     if _on_cpu(queries, w1):
         return ref.filter_predict_destd(w1, b1, w2, b2, y_mean, y_std,
                                         queries, offsets, w1_scale, w2_scale)
-    if w1.dtype != torch.float32 or w1_scale is not None \
-            or w2_scale is not None:
-        raise NotImplementedError(
-            f"{w1.dtype} filter weights on the card are ROADMAP queue B row "
-            "1b (bf16/int8 variants of the fused filter kernel)")
     F = w1.shape[0]
     off = (torch.zeros(F, dtype=torch.float32, device=w1.device)
            if offsets is None else offsets.float().contiguous())
+    scales = [None if s is None else s.float().contiguous()
+              for s in (w1_scale, w2_scale)]
     return kernel.fused_filter_mlp_cuda(
         queries.float().contiguous(), w1.contiguous(),
-        b1.float().contiguous(), w2.float().contiguous(),
+        b1.float().contiguous(), w2.contiguous(),
         b2.float().contiguous(), y_mean.float().contiguous(),
-        y_std.float().contiguous(), off)
+        y_std.float().contiguous(), off, *scales)
 
 
 reference = ref.filter_predict

@@ -95,13 +95,17 @@ def test_entry_points_default_to_the_card():
         lfi.search(S[:2])
     with pytest.raises(RuntimeError, match="CUDA"):
         bridge.leafi_from_arrays({}, None, [], None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build.requantize_leafi(lfi, "int8")
     # asked for the CPU, the same calls run
     assert lfi.search(S[:2], device="cpu").ids.shape == (2, 1)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
     """A tensor that does not lie on the CPU goes to the CUDA kernel: on a
-    machine without CUDA that raises instead of running the plain version."""
+    machine without CUDA that raises instead of running the plain version,
+    for every kernel and every filter payload."""
+    from repro_torch.kernels.box_lb import ops as box_ops
     from repro_torch.kernels.filter_mlp import ops as mlp_ops
     from repro_torch.kernels.l2_scan import ops as l2_ops
     q = torch.empty((4, 8), device="meta")
@@ -109,14 +113,29 @@ def test_wrappers_never_fall_back_off_the_cpu():
         l2_ops.pairwise_l2(q, q)
     with pytest.raises(RuntimeError):
         l2_ops.slab_l2(q[None], q[None], "pairwise")
+    with pytest.raises(RuntimeError):
+        box_ops.box_lb(q, q, q)
+    with pytest.raises(RuntimeError):
+        box_ops.sax_lb(q, torch.empty((3, 8, 2), device="meta"), length=64)
+    with pytest.raises(RuntimeError):
+        box_ops.eapca_lb(torch.empty((4, 4, 2), device="meta"),
+                         torch.empty((3, 4, 4), device="meta"),
+                         torch.empty((4,), device="meta"))
     w1 = torch.empty((2, 8, 8), device="meta")
     v = torch.empty((2, 8), device="meta")
     s = torch.empty((2,), device="meta")
     with pytest.raises(RuntimeError):
         mlp_ops.filter_predict_fused(w1, v, v, s, s, s, q)
-    with pytest.raises(NotImplementedError, match="1b"):
+    with pytest.raises(RuntimeError):
         mlp_ops.filter_predict_fused(w1.bfloat16(), v, v.bfloat16(), s, s, s,
                                      q)
+    with pytest.raises(RuntimeError):
+        mlp_ops.filter_predict_fused(w1.to(torch.int8), v, v.to(torch.int8),
+                                     s, s, s, q, None, s, s)
+    # int8 weights without their scales are refused before any launch
+    with pytest.raises(ValueError, match="scale"):
+        mlp_ops.filter_predict_fused(w1.to(torch.int8), v, v.to(torch.int8),
+                                     s, s, s, q)
 
 
 def _load_smoke():
@@ -133,13 +152,25 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                epochs=3, device="cpu")
     assert len(out["results"]) == 16
     assert set(out["launches"]) == {"pairwise_l2", "slab_l2",
-                                    "fused_filter_mlp"}
+                                    "fused_filter_mlp",
+                                    "fused_filter_mlp_bf16",
+                                    "fused_filter_mlp_int8", "box_lb"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
+    isax = smoke.run_isax(n=2000, m=64, n_queries=16, n_brute=8,
+                          leaf_capacity=64, n_global=60, n_local=16,
+                          epochs=3, device="cpu")
+    assert isax["lfi"].index.kind == "isax"
+    assert set(isax["results"]) == {(p, k, t) for p in smoke.PAYLOADS
+                                    for k in (1, 5) for t in smoke.TARGETS}
+    assert set(isax["launches"]) == set(out["launches"])
     printed = capsys.readouterr().out
     assert "exact search == brute force on 8 queries" in printed
     assert "target=per-query" in printed
     assert "breakdown k=5 target=0.99" in printed
+    assert "isax exact search == brute force on 8 queries" in printed
+    for payload in smoke.PAYLOADS:
+        assert f"isax payload={payload}" in printed
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
