@@ -18,7 +18,22 @@
    just after the last search).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer, and
    profiles it for the device's busy time and idle share.
-4. iSAX, end to end on the same collection: ``build_leafi(LeaFiConfig(
+4. Single-query early-termination search (``search_early``, paper Alg. 2 as
+   written) on the same DSTree index for 32 of its queries, k = 1 and 5,
+   exact and at target 0.99: per-query wall time (median, p90), searched
+   leaves, pruning and recall beside the batched path's figures for the
+   same queries; asserts exact ``search_early`` == brute force and that
+   ``box_lb`` and ``fused_filter_mlp`` launched.
+5. The grouped per-target search (``search_batched_grouped``) on the 256
+   per-query-target queries, k = 1 and 5, beside the vectorised per-query
+   batch: recall, pruning, the share of identical ids; asserts the
+   reference's serving tolerances between the two.
+6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
+   own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
+   index's shape (its F, Q = 256, m = h = 256): the per-filter
+   ``filter_mlp`` kernel beside the fused kernel's three payloads, each
+   against its roofline bound; asserts that all four launched.
+7. iSAX, end to end on the same collection: ``build_leafi(LeaFiConfig(
    backbone="isax", word_len=8, leaf_capacity=256,
    t_filter_over_t_series=20.0))`` with float32 filter weights, then
    ``requantize_leafi`` to bfloat16 and int8; for each payload 256 queries
@@ -29,12 +44,12 @@
    index's recall@1 at target 0.99 on its own calibration split (DSTree's
    too) beside the tuner's quality knots.  Then the same layer breakdown
    for one iSAX batch.
-5. Holds each kernel against its plain PyTorch version on the card, on the
+8. Holds each kernel against its plain PyTorch version on the card, on the
    largest inputs the main paths gave it, and times kernel (through its
    wrapper, and replayed from a CUDA graph without the host-side enqueue),
    plain version and (for the distance kernels) ``torch.cdist``, beside
    the least time the card could take (f32 CUDA-core peak, HBM rate).
-6. Prints ``{"kernels": [...]}`` and, as the last line,
+9. Prints ``{"kernels": [...]}`` and, as the last line,
    ``{"ok": true, "device": {...}}``.  Any failure raises and exits
    non-zero before that line; so does a machine without a CUDA card.
 """
@@ -52,11 +67,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-
-# published peaks of one H100 SXM at its 700 W limit: f32 outside the
-# tensor cores, HBM3 bandwidth
-F32_FLOPS = 67e12
-HBM_BYTES = 3.35e12
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
@@ -85,10 +95,17 @@ KERNELS = {
     "box_lb": ("src/repro_torch/csrc/box_lb.cu",
                "src/repro/kernels/box_lb/kernel.py:31",
                (1e-4, 1e-5), "f32 sum over d in another order"),
+    "filter_mlp": ("src/repro_torch/csrc/filter_mlp.cu",
+                   "src/repro/kernels/filter_mlp/kernel.py:66",
+                   (1e-4, 1e-5), "f32 sums over m and h in another order"),
 }
 #: the kernels each path launches
 DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb")
-ISAX_KERNELS = tuple(KERNELS)
+ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
+                "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb")
+SEARCH_KERNELS = ("box_lb", "fused_filter_mlp")     # early and grouped
+SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
+                 "fused_filter_mlp_int8")
 PAYLOADS = ("float32", "bfloat16", "int8")
 TARGETS = ("exact", "0.99", "0.95", "per-query")
 
@@ -133,6 +150,7 @@ def capture_largest_inputs(captured: dict):
                (l2_kernel, "slab_l2_cuda", lambda a: "slab_l2"),
                (mlp_kernel, "fused_filter_mlp_cuda",
                 lambda a: mlp_kernel.ENTRY[a[1].dtype]),
+               (mlp_kernel, "filter_mlp_cuda", lambda a: "filter_mlp"),
                (box_kernel, "box_lb_cuda", lambda a: "box_lb")]
     saved = []
     for mod, attr, naming in targets:
@@ -168,23 +186,26 @@ def _recall(ids: np.ndarray, exact_ids: np.ndarray) -> float:
 
 def _brute_force_check(lfi, queries: np.ndarray, exact_results,
                        n_brute: int, label: str) -> None:
-    """Exact search (k = 5) equals a brute-force scan over the pairwise
-    kernel for the first ``n_brute`` queries."""
+    """Exact search (each result's k) equals a brute-force scan over the
+    pairwise kernel for the first ``n_brute`` queries."""
     import torch
     from repro_torch.kernels.l2_scan import ops as l2_ops
     idx = lfi.index
+    ks = sorted({ex.dists.shape[1] for ex in exact_results})
     qb = torch.as_tensor(queries[:n_brute], device=idx.device)
     d = l2_ops.pairwise_l2(qb, idx.series[: idx.n_series])
     bd, brow = torch.sort(d, dim=1, stable=True)
-    bd, brow = bd[:, :5].cpu().numpy(), brow[:, :5].cpu().numpy()
+    bd, brow = bd[:, :ks[-1]].cpu().numpy(), brow[:, :ks[-1]].cpu().numpy()
     bids = idx.order.cpu().numpy()[brow]
     for ex in exact_results:
-        np.testing.assert_allclose(ex.dists[:n_brute], bd, rtol=1e-4,
+        k = ex.dists.shape[1]
+        np.testing.assert_allclose(ex.dists[:n_brute], bd[:, :k], rtol=1e-4,
                                    atol=1e-3)
-        assert (np.sort(ex.ids[:n_brute], 1) == np.sort(bids, 1)).all(), \
+        assert (np.sort(ex.ids[:n_brute], 1)
+                == np.sort(bids[:, :k], 1)).all(), \
             f"{label}exact search disagrees with brute force"
-    log(f"{label}exact search == brute force on {n_brute} queries (k=5, "
-        f"{len(exact_results)} exact run(s))")
+    log(f"{label}exact search == brute force on {n_brute} queries "
+        f"(k={'/'.join(map(str, ks))}, {len(exact_results)} exact run(s))")
 
 
 def _check_launches(launches: dict, expected, label: str,
@@ -321,7 +342,160 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
                        n_brute, "")
     _check_launches(launches, DSTREE_KERNELS, "DSTree", on_card)
     return {"launches": launches, "results": results, "lfi": lfi,
-            "queries": queries}
+            "queries": queries, "targets": targets}
+
+
+def _stack_results(rs, n_leaves: int):
+    """One SearchResult from single-query ones, in order."""
+    from repro_torch.core import search
+    cat = {name: np.concatenate([getattr(r, name) for r in rs])
+           for name in ("dists", "ids", "searched", "pruned_lb",
+                        "pruned_filter")}
+    return search.SearchResult(n_leaves=n_leaves, **cat)
+
+
+def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
+              device: str = "cuda") -> dict:
+    """``search_early`` for the first ``n_early`` queries, k = 1 and 5,
+    exact (filters off) and at target 0.99, beside the batched path's
+    figures for the same queries (``batched``: ``run_end_to_end``'s
+    results); asserts exact == brute force and (on the card) that the
+    lower-bound and fused filter kernels launched."""
+    import torch
+    from repro_torch.core import search
+    idx = lfi.index
+    n_batch = len(queries)
+    kw = dict(filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
+              tuner=lfi.tuner, device=device)
+    on_card = torch.device(device).type == "cuda"
+    for target in (None, 0.99):                                     # warm
+        search.search_early(idx, queries[0], quality_target=target,
+                            use_filters=target is not None, **kw)
+    results = {}
+    _zero_counters()
+    for k in (1, 5):
+        for name, target in (("exact", None), ("0.99", 0.99)):
+            rs, walls = [], []
+            for i in range(n_early):
+                _sync(device)
+                t0 = time.perf_counter()
+                rs.append(search.search_early(
+                    idx, queries[i], k=k, quality_target=target,
+                    use_filters=target is not None, **kw))
+                _sync(device)
+                walls.append(time.perf_counter() - t0)
+            results[(k, name)] = (_stack_results(rs, idx.n_leaves),
+                                  np.asarray(walls))
+    launches = _launch_counters()
+
+    for (k, name), (r, walls) in results.items():
+        exact = results[(k, "exact")][0]
+        b, b_wall = batched[("default", k, name)]
+        b_exact = batched[("default", k, "exact")][0]
+        assert r.dists.shape == (n_early, k), r.dists.shape
+        assert np.isfinite(r.dists).all(), f"non-finite dists k={k} {name}"
+        log(f"search_early k={k} target={name:5s}: per query wall median "
+            f"{np.median(walls) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(walls, 90) * 1e3:.2f} ms; searched="
+            f"{r.searched.mean():.1f}/{r.n_leaves} pruned_lb="
+            f"{r.pruned_lb.mean():.1f} pruned_filter="
+            f"{r.pruned_filter.mean():.1f} pruning="
+            f"{r.pruning_ratio.mean():.4f} recall={_recall(r.ids, exact.ids):.4f}"
+            f" | batched, same {n_early} queries: per-query share "
+            f"{b_wall / n_batch * 1e3:.2f} ms of a {n_batch}-query batch, "
+            f"searched={b.searched[:n_early].mean():.1f} pruning="
+            f"{b.pruning_ratio[:n_early].mean():.4f} recall="
+            f"{_recall(b.ids[:n_early], b_exact.ids[:n_early]):.4f}")
+    _brute_force_check(lfi, queries, [results[(k, "exact")][0]
+                                      for k in (1, 5)],
+                       n_early, "search_early ")
+    _check_launches(launches, SEARCH_KERNELS, "search_early", on_card)
+    return {"launches": launches, "results": results}
+
+
+def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
+                device: str = "cuda") -> dict:
+    """``search_batched_grouped`` on the per-query-target batch, k = 1 and
+    5, beside the vectorised per-query batch from ``batched``; asserts the
+    reference's serving tolerances between the two and (on the card) that
+    the lower-bound and fused filter kernels launched."""
+    import torch
+    from repro_torch.core import search
+    on_card = torch.device(device).type == "cuda"
+    per_query = targets["per-query"]
+    results = {}
+    _zero_counters()
+    for k in (1, 5):
+        _sync(device)
+        t0 = time.perf_counter()
+        r = search.search_batched_grouped(
+            lfi.index, queries, per_query, k=k,
+            filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
+            tuner=lfi.tuner, device=device)
+        _sync(device)
+        results[k] = (r, time.perf_counter() - t0)
+    launches = _launch_counters()
+
+    n = len(queries)
+    for k, (grp, wall) in results.items():
+        vec, vec_wall = batched[("default", k, "per-query")]
+        exact = batched[("default", k, "exact")][0]
+        assert grp.dists.shape == (n, k), grp.dists.shape
+        same = float((grp.ids == vec.ids).all(1).mean())
+        neq = float((grp.ids != vec.ids).mean())
+        log(_search_line(f"grouped    k={k} target=per-query", grp, exact,
+                         wall, n)
+            + f" | vectorised: pruning={vec.pruning_ratio.mean():.4f} "
+            f"recall={_recall(vec.ids, exact.ids):.4f} wall="
+            f"{vec_wall * 1e3:.1f} ms; identical ids on {same:.4f} of the "
+            f"queries, {neq:.4f} of the ids differ")
+        np.testing.assert_allclose(vec.dists, grp.dists, rtol=1e-5,
+                                   atol=1e-6)
+        assert np.abs(vec.searched - grp.searched).max() <= 2
+        assert neq <= 0.02, f"{neq} of the ids differ beyond ties"
+    _check_launches(launches, SEARCH_KERNELS, "grouped", on_card)
+    return {"launches": launches, "results": results}
+
+
+def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
+                     main_shape: tuple = (256, 256, 256),
+                     device: str = "cuda", captured: dict | None = None
+                     ) -> dict:
+    """The filter-inference suite at its own sweep (``sweep``: arguments of
+    ``bench_filters``, its defaults if None), then once at the main path's
+    shape (``n_filters``, Q, m, h = ``main_shape``); prints each payload's
+    rows, parity errors and fused-over-per-filter speedups and asserts (on
+    the card) that all four filter kernels launched."""
+    import torch
+    from repro_torch.bench import filters_bench
+    on_card = torch.device(device).type == "cuda"
+    q, m, h = main_shape
+    captured = {} if captured is None else captured
+    payloads = []
+    _zero_counters()
+    with capture_largest_inputs(captured):
+        for label, args in (("sweep", sweep or {}),
+                            ("main shape", dict(f_values=(n_filters,), q=q,
+                                                m=m, h=h))):
+            t0 = time.perf_counter()
+            rows, payload = filters_bench.bench_filters(**args,
+                                                        device=device)
+            cfg = payload["config"]
+            log(f"filter suite, {label} (F={cfg['f_values']}, Q={cfg['Q']}, "
+                f"m={cfg['m']}, h={cfg['h']}, {cfg['device']}) in "
+                f"{time.perf_counter() - t0:.2f} s: name,us_per_call,derived")
+            for row in rows:
+                log(f"  {row}")
+            log(f"filter suite, {label}: parity_max_abs_err "
+                + json.dumps(payload["parity_max_abs_err"]))
+            log(f"filter suite, {label}: fused_speedup_f32 "
+                + json.dumps(payload["fused_speedup_f32"]))
+            assert all(np.isfinite(v) for v in
+                       payload["parity_max_abs_err"].values())
+            payloads.append(payload)
+    launches = _launch_counters()
+    _check_launches(launches, SUITE_KERNELS, "filter suite", on_card)
+    return {"launches": launches, "payloads": payloads}
 
 
 def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
@@ -525,7 +699,10 @@ def _graph_ms(fn, reps: int = 20) -> float:
 
 def _bound(name: str, args) -> tuple:
     """(least ms, "bytes"|"operations") for one call: every input read once,
-    every output written once, against the f32 and HBM peaks."""
+    every output written once, against the H100's f32 and HBM peaks
+    (``repro_torch.analysis.roofline.H100``).  The filter kernels count
+    ``roofline.mlp_operations``, the bound the filter suite uses too."""
+    from repro_torch.analysis import roofline
     if name == "pairwise_l2":
         q, s = args
         Q, m = q.shape
@@ -544,15 +721,22 @@ def _bound(name: str, args) -> tuple:
         L = lo.shape[0]
         flops = Q * L * (6 * d + 1)      # 2 sub, 2 max, mul, add; sqrt
         nbytes = 4 * (Q * d + 2 * L * d + Q * L)
+    elif name == "filter_mlp":           # raw z
+        q, w1 = args[0], args[1]
+        Q = q.shape[0]
+        F, m, h = w1.shape
+        flops = roofline.mlp_operations(F, Q, m, h)
+        nbytes = 4 * (F * (m * h + 2 * h + 1) + Q * m + F * Q)
     else:                                 # the fused filter MLP, any payload
         q, w1 = args[0], args[1]
         Q = q.shape[0]
         F, m, h = w1.shape
-        flops = F * Q * (2 * m * h + 4 * h + 4)
+        flops = roofline.mlp_operations(F, Q, m, h)
         n_scales = 2 if w1.dtype.itemsize == 1 else 0
         nbytes = (w1.dtype.itemsize * F * (m * h + h)
                   + 4 * (Q * m + F * (h + 4 + n_scales) + F * Q))
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    t_ops = flops / roofline.H100.peak_flops
+    t_bytes = nbytes / roofline.H100.hbm_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -561,6 +745,11 @@ def _plain_mlp(q, w1, b1, w2, b2, ym, ys, off, s1=None, s2=None):
     from repro_torch.kernels.filter_mlp import ref as mlp_ref
     return mlp_ref.filter_predict_destd(w1, b1, w2, b2, ym, ys, q, off, s1,
                                         s2)
+
+
+def _plain_raw_mlp(q, w1, b1, w2, b2):
+    from repro_torch.kernels.filter_mlp import ref as mlp_ref
+    return mlp_ref.filter_predict(w1, b1, w2, b2, q)
 
 
 def check_kernels(captured: dict, launches: dict, power: str) -> list:
@@ -577,13 +766,15 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                  "slab_l2": l2_kernel.slab_l2_cuda,
                  "fused_filter_mlp": mlp, "fused_filter_mlp_bf16": mlp,
                  "fused_filter_mlp_int8": mlp,
-                 "box_lb": box_kernel.box_lb_cuda}
+                 "box_lb": box_kernel.box_lb_cuda,
+                 "filter_mlp": mlp_kernel.filter_mlp_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
                 "fused_filter_mlp_bf16": _plain_mlp,
                 "fused_filter_mlp_int8": _plain_mlp,
-                "box_lb": box_ref.box_lb}
+                "box_lb": box_ref.box_lb,
+                "filter_mlp": _plain_raw_mlp}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     rows = []
     for name, (source, replaces, (atol, rtol), why) in KERNELS.items():
@@ -646,6 +837,7 @@ def main() -> int:
     # full f32 everywhere: the reference accumulates in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     power = card.split(",")[-1].strip()
@@ -658,17 +850,39 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     captured: dict = {}
+    phases: dict = {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phases[name] = round(time.perf_counter() - t, 2)
+        return out
+
     series = make_series()
-    e2e = run_end_to_end(device="cuda", captured=captured, series=series)
-    search_breakdown(e2e["lfi"], e2e["queries"])
-    e2e_launches = e2e["launches"]
+    e2e = phase("dstree", run_end_to_end, device="cuda", captured=captured,
+                series=series)
+    phase("dstree breakdown", search_breakdown, e2e["lfi"], e2e["queries"])
+    paths = [e2e["launches"]]
+    paths.append(phase("search_early", run_early, e2e["lfi"],
+                       e2e["queries"], e2e["results"],
+                       device="cuda")["launches"])
+    paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
+                       e2e["targets"], e2e["results"],
+                       device="cuda")["launches"])
+    n_filters = len(e2e["lfi"].leaf_ids)
     del e2e                               # the DSTree index leaves the card
-    isax = run_isax(device="cuda", captured=captured, series=series)
-    search_breakdown(isax["lfi"], isax["queries"], reps=3, label="isax ")
-    launches = {name: e2e_launches.get(name, 0) + isax["launches"][name]
-                for name in KERNELS}
-    log("launches on both paths: " + json.dumps(launches))
-    rows = check_kernels(captured, launches, power)
+    paths.append(phase("filter suite", run_filter_suite, n_filters,
+                       device="cuda", captured=captured)["launches"])
+    isax = phase("isax", run_isax, device="cuda", captured=captured,
+                 series=series)
+    phase("isax breakdown", search_breakdown, isax["lfi"], isax["queries"],
+          reps=3, label="isax ")
+    paths.append(isax["launches"])
+    launches = {name: sum(p.get(name, 0) for p in paths) for name in KERNELS}
+    log("launches on all paths: " + json.dumps(launches))
+    rows = phase("kernel checks", check_kernels, captured, launches, power)
+    log(f"phase wall times (s): {json.dumps(phases)}; script "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

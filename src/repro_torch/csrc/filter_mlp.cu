@@ -1,15 +1,21 @@
-// Fused filter-MLP inference for Hopper (sm_90a), float32 on the CUDA cores.
+// Filter-MLP inference for Hopper (sm_90a), float32 on the CUDA cores.
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/filter_mlp/kernel.py  fused_filter_mlp_kernel
-//   (_fused_body for float32 and bfloat16 weights, _fused_body_q for int8)
-// which evaluates, for every (filter f, query q),
-//   z   = relu(q . w1[f] + b1[f]) . w2[f] + b2[f]
-//   out = z * y_std[f] + y_mean[f] - offset[f]          (this op order)
-// and writes the search-ready (F, Q) d_F block in one launch.
+// Replaces two Pallas TPU kernels of src/repro/kernels/filter_mlp/kernel.py:
 //
-// One kernel, templated on the weight payload: float, __nv_bfloat16 or
-// int8_t.  Each w1/w2 element is read at its payload width and upcast to f32
+// * fused_filter_mlp_kernel (_fused_body for float32 and bfloat16 weights,
+//   _fused_body_q for int8), which evaluates, for every (filter f, query q),
+//     z   = relu(q . w1[f] + b1[f]) . w2[f] + b2[f]
+//     out = z * y_std[f] + y_mean[f] - offset[f]        (this op order)
+//   and writes the search-ready (F, Q) d_F block in one launch.  C entries
+//   fused_filter_mlp, fused_filter_mlp_bf16, fused_filter_mlp_int8.
+// * filter_mlp_kernel (body _mlp_kernel), the per-filter sweep that the
+//   filter-inference benchmark measures the fused kernel against: the raw z
+//   alone, float32 weights only, no statistics and no offsets.  C entry
+//   filter_mlp.
+//
+// One kernel, templated on the weight payload (float, __nv_bfloat16 or
+// int8_t) and on the epilogue (raw z, or de-standardized minus the offset).
+// Each w1/w2 element is read at its payload width and upcast to f32
 // as it lands in shared memory (w1) or registers (w2); every product and sum
 // stays f32 (no bf16/TF32 tensor-core MMA: the prune decisions compare these
 // values with lower bounds).  int8 keeps the TPU kernel's algebra: the
@@ -17,23 +23,28 @@
 // row is used as w2 * s2[f].  Only the weight bytes change with the payload
 // (m*h per filter at 4, 2 or 1 bytes); the arithmetic is the same.
 //
-// The TPU kernel groups bf filters into one (m, bf*h) operand block (2 MB at
-// m = h = 256, bf = 8) and sums each filter's h lanes with a matmul against a
-// block-diagonal 0/1 operand, both devices of the 128x128 MXU and its large
-// VMEM.  A block here has at most 227 KB of shared memory, so instead each
-// block owns one (filter, 64-query tile), loops over 64-lane chunks of the
-// hidden layer, computes each chunk's (64 x 64) hidden tile as a register-
-// tiled product over m (16-deep shared-memory stages), applies b1/relu/w2
-// in registers and keeps each query's layer-2 partial sum in a register.  The
-// 16 threads that share a query row then reduce their partials with warp
-// shuffles, and the epilogue applies b2, de-standardization and the offset.
-// No hidden activation ever reaches device memory.
+// The TPU's fused kernel groups bf filters into one (m, bf*h) operand block
+// (2 MB at m = h = 256, bf = 8) and sums each filter's h lanes with a matmul
+// against a block-diagonal 0/1 operand, both devices of the 128x128 MXU and
+// its large VMEM; its per-filter kernel takes one filter per grid step and
+// re-streams the query tile for every filter.  A block here has at most
+// 227 KB of shared memory, so both entries take the per-filter layout: each
+// block owns one (filter, 64-query tile), re-reads its query tile for every
+// filter, loops over 64-lane chunks of the hidden layer, computes each
+// chunk's (64 x 64) hidden tile as a register-tiled product over m (16-deep
+// shared-memory stages), applies b1/relu/w2 in registers and keeps each
+// query's layer-2 partial sum in a register.  The 16 threads that share a
+// query row then reduce their partials with warp shuffles, and the epilogue
+// applies b2 (and, fused, de-standardization and the offset).  No hidden
+// activation ever reaches device memory.  Ragged F, Q, m and h are masked in
+// the kernel, so nothing is padded.
 //
 // Bound on an H100: 2*F*Q*m*h operations against the weight stream
 // F*((m*h + h)*w + (h + 3)*4) bytes at payload width w = 4, 2 or 1 (+ queries
 // and output).  At the search's shapes (F ~ 4k filters, Q = 256, m = h = 256)
-// that is >= 128 operations per byte, so the f32 CUDA-core rate (67 TFLOP/s)
-// bounds every variant.  The query tiles of one
+// that is >= 128 operations per byte, and at the benchmark's largest shape
+// (F = 4096, Q = 128, m = h = 128) >= 64, so the f32 CUDA-core rate
+// (67 TFLOP/s) bounds every variant and both entries.  The query tiles of one
 // filter are adjacent in the grid, so a filter's weights come from device
 // memory once and from L2 for its other tiles.  No TF32: the conformal
 // offsets are calibrated on these values.
@@ -59,15 +70,16 @@ constexpr int HC = 64;   // hidden lanes per chunk
 constexpr int BK = 16;   // depth of one shared-memory stage over m
 constexpr int THREADS = 256;
 
-// s1, s2: per-filter int8 scales (read only when T is int8_t)
-template <typename T>
+// s1, s2: per-filter int8 scales (read only when T is int8_t); ym, ys, off:
+// the fused epilogue's statistics and offsets (read only when kDestd)
+template <typename T, bool kDestd>
 __global__ void __launch_bounds__(THREADS)
-fused_mlp_kernel(const float* __restrict__ q, const T* __restrict__ w1,
-                 const float* __restrict__ s1, const float* __restrict__ b1,
-                 const T* __restrict__ w2, const float* __restrict__ s2,
-                 const float* __restrict__ b2, const float* __restrict__ ym,
-                 const float* __restrict__ ys, const float* __restrict__ off,
-                 float* __restrict__ out, int Q, int m, int h, int q_tiles) {
+mlp_kernel(const float* __restrict__ q, const T* __restrict__ w1,
+           const float* __restrict__ s1, const float* __restrict__ b1,
+           const T* __restrict__ w2, const float* __restrict__ s2,
+           const float* __restrict__ b2, const float* __restrict__ ym,
+           const float* __restrict__ ys, const float* __restrict__ off,
+           float* __restrict__ out, int Q, int m, int h, int q_tiles) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
   const int f = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * BQ;
@@ -149,16 +161,25 @@ fused_mlp_kernel(const float* __restrict__ q, const T* __restrict__ w1,
     for (int o = 8; o > 0; o >>= 1) z[i] += __shfl_xor_sync(0xffffffffu, z[i], o);
 
   if (tx == 0) {
-    const float bias = b2[f], mean = ym[f], sd = ys[f], o = off[f];
+    const float bias = b2[f];
+    if constexpr (kDestd) {
+      const float mean = ym[f], sd = ys[f], o = off[f];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      if (r < Q) out[(long long)f * Q + r] = (z[i] + bias) * sd + mean - o;
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + ty * 4 + i;
+        if (r < Q) out[(long long)f * Q + r] = (z[i] + bias) * sd + mean - o;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + ty * 4 + i;
+        if (r < Q) out[(long long)f * Q + r] = z[i] + bias;
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kDestd = true>
 int launch(const void* queries, const void* w1, const void* s1,
            const void* b1, const void* w2, const void* s2, const void* b2,
            const void* y_mean, const void* y_std, const void* offsets,
@@ -167,8 +188,8 @@ int launch(const void* queries, const void* w1, const void* s1,
   const int q_tiles = (Q + BQ - 1) / BQ;
   const long long blocks = (long long)F * q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_mlp_kernel<T><<<(unsigned)blocks, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  mlp_kernel<T, kDestd><<<(unsigned)blocks, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(queries), static_cast<const T*>(w1),
       static_cast<const float*>(s1), static_cast<const float*>(b1),
       static_cast<const T*>(w2), static_cast<const float*>(s2),
@@ -212,4 +233,14 @@ extern "C" int fused_filter_mlp_int8(const void* queries, const void* w1,
                                      void* stream) {
   return launch<int8_t>(queries, w1, s1, b1, w2, s2, b2, y_mean, y_std,
                         offsets, out, F, Q, m, h, stream);
+}
+
+// queries (Q, m); w1 (F, m, h); b1, w2 (F, h); b2 (F,) -> out (F, Q), the raw
+// relu(q . w1 + b1) . w2 + b2; all contiguous float32.
+extern "C" int filter_mlp(const void* queries, const void* w1, const void* b1,
+                          const void* w2, const void* b2, void* out, int F,
+                          int Q, int m, int h, void* stream) {
+  return launch<float, false>(queries, w1, nullptr, b1, w2, nullptr, b2,
+                              nullptr, nullptr, nullptr, out, F, Q, m, h,
+                              stream);
 }

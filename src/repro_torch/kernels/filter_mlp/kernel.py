@@ -1,12 +1,12 @@
-"""ctypes binding of the hand-written fused filter-MLP CUDA kernel.
+"""ctypes bindings of the hand-written filter-MLP CUDA kernels.
 
 Source: ``src/repro_torch/csrc/filter_mlp.cu`` (the file says which TPU
-kernel it replaces and what bounds it on an H100).  One entry point per
-weight payload (float32, bfloat16, int8 with per-filter scales).  The
-wrapper checks its inputs, allocates the output with ``torch.empty``,
+kernels it replaces and what bounds them on an H100).  The fused kernel has
+one entry point per weight payload (float32, bfloat16, int8 with
+per-filter scales); ``filter_mlp`` is the raw per-filter sweep (float32).
+Each wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, raises if the launch
-reports a CUDA error, and adds one to the payload's entry of
-:data:`LAUNCHES`.
+reports a CUDA error, and adds one to its entry of :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from .. import common
 
 #: launches per kernel; ``chip_smoke.py`` zeroes them before the main path
 LAUNCHES = {"fused_filter_mlp": 0, "fused_filter_mlp_bf16": 0,
-            "fused_filter_mlp_int8": 0}
+            "fused_filter_mlp_int8": 0, "filter_mlp": 0}
 
 #: C entry point (and launch counter) per weight payload
 ENTRY = {torch.float32: "fused_filter_mlp",
@@ -32,6 +32,8 @@ _SIGNATURES = {
     "fused_filter_mlp_bf16": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "fused_filter_mlp_int8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "filter_mlp": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
 }
 
@@ -89,4 +91,33 @@ def fused_filter_mlp_cuda(queries: torch.Tensor, w1: torch.Tensor,
         common.stream_ptr(queries))
     common.check(err, entry)
     LAUNCHES[entry] += 1
+    return out
+
+
+def filter_mlp_cuda(queries: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+                    ) -> torch.Tensor:
+    """Stacked float32 filters on one card → (F, Q) raw predictions
+    relu(q·w1 + b1)·w2 + b2 (no statistics, no offsets)."""
+    dev = queries.device
+    common.require(queries, "queries", torch.float32, 2, dev)
+    common.require(w1, "w1", torch.float32, 3, dev)
+    F, m, h = w1.shape
+    Q = queries.shape[0]
+    if queries.shape[1] != m:
+        raise ValueError(f"queries width {queries.shape[1]} != filter "
+                         f"input width {m}")
+    for name, t, shape in (("b1", b1, (F, h)), ("w2", w2, (F, h)),
+                           ("b2", b2, (F,))):
+        common.require(t, name, torch.float32, len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    out = torch.empty((F, Q), dtype=torch.float32, device=dev)
+    lib = common.load("filter_mlp", _SIGNATURES)
+    err = lib.filter_mlp(common.ptr(queries), common.ptr(w1), common.ptr(b1),
+                         common.ptr(w2), common.ptr(b2), common.ptr(out),
+                         F, Q, m, h, common.stream_ptr(queries))
+    common.check(err, "filter_mlp")
+    LAUNCHES["filter_mlp"] += 1
     return out

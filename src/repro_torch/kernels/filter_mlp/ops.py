@@ -1,9 +1,15 @@
-"""Wrapper for fused filter-MLP inference (port of
-``repro.kernels.filter_mlp.ops.filter_predict_fused``).
+"""Wrappers for stacked filter-MLP inference (port of
+``repro.kernels.filter_mlp.ops``).
+
+* :func:`filter_predict` — the per-filter sweep's raw predictions (float32
+  weights), the baseline the filter-inference benchmark measures the fused
+  kernel against.
+* :func:`filter_predict_fused` — de-standardized, offset-adjusted
+  predictions with float32, bfloat16 or int8 weights; what search runs.
 
 For CPU tensors the plain composition in ``ref.py`` runs; for CUDA tensors
-the hand-written fused kernel launches (its float32, bfloat16 or int8
-variant, by ``w1.dtype``) or the call raises.
+the hand-written kernel launches (the fused one's variant by ``w1.dtype``)
+or the call raises.  The kernels mask ragged shapes, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -13,6 +19,16 @@ import torch
 
 from . import kernel, ref
 from ..common import on_cpu as _on_cpu
+
+
+def filter_predict(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """All-filters × all-queries raw predictions → (F, Q) float32."""
+    if _on_cpu(queries, w1):
+        return ref.filter_predict(w1, b1, w2, b2, queries)
+    return kernel.filter_mlp_cuda(
+        queries.float().contiguous(), w1.contiguous(),
+        b1.float().contiguous(), w2.contiguous(), b2.float().contiguous())
 
 
 def filter_predict_fused(w1: torch.Tensor, b1: torch.Tensor,

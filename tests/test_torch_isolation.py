@@ -154,7 +154,8 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
     assert set(out["launches"]) == {"pairwise_l2", "slab_l2",
                                     "fused_filter_mlp",
                                     "fused_filter_mlp_bf16",
-                                    "fused_filter_mlp_int8", "box_lb"}
+                                    "fused_filter_mlp_int8", "box_lb",
+                                    "filter_mlp"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     isax = smoke.run_isax(n=2000, m=64, n_queries=16, n_brute=8,
@@ -171,6 +172,66 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
     assert "isax exact search == brute force on 8 queries" in printed
     for payload in smoke.PAYLOADS:
         assert f"isax payload={payload}" in printed
+
+
+def test_chip_smoke_new_phases_rehearsal_on_cpu(capsys):
+    """search_early, the grouped search and the filter suite, each as
+    chip_smoke.py drives them, at a tiny size on the CPU."""
+    smoke = _load_smoke()
+    out = smoke.run_end_to_end(n=2000, m=64, n_queries=16, n_brute=8,
+                               leaf_capacity=64, n_global=60, n_local=16,
+                               epochs=3, device="cpu")
+    early = smoke.run_early(out["lfi"], out["queries"], out["results"],
+                            n_early=4, device="cpu")
+    assert set(early["results"]) == {(k, t) for k in (1, 5)
+                                     for t in ("exact", "0.99")}
+    grouped = smoke.run_grouped(out["lfi"], out["queries"], out["targets"],
+                                out["results"], device="cpu")
+    assert set(grouped["results"]) == {1, 5}
+    captured: dict = {}
+    suite = smoke.run_filter_suite(
+        len(out["lfi"].leaf_ids), sweep=dict(f_values=(3, 6), q=8, m=16,
+                                             h=16),
+        main_shape=(16, 64, 64), device="cpu", captured=captured)
+    assert [p["config"]["f_values"] for p in suite["payloads"]] == \
+        [[3, 6], [len(out["lfi"].leaf_ids)]]
+    assert not captured                  # no kernel is launched on the CPU
+    for launches in (early["launches"], grouped["launches"],
+                     suite["launches"]):
+        assert set(launches) == set(out["launches"])
+    printed = capsys.readouterr().out
+    assert "search_early exact search == brute force on 4 queries (k=1/5" \
+        in printed
+    for k in (1, 5):
+        for t in ("exact", "0.99 "):
+            assert f"search_early k={k} target={t}" in printed
+        assert f"grouped    k={k} target=per-query" in printed
+    assert "filter suite, main shape" in printed
+    assert "filters/per_filter/float32/F6" in printed
+    assert set(smoke.SUITE_KERNELS) | set(smoke.SEARCH_KERNELS) \
+        <= set(smoke.KERNELS)
+
+
+def test_new_modules_are_checked():
+    """The import checks above reach the port's analysis and bench
+    modules."""
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in
+             p.parents}
+    for mod in ("analysis/roofline.py", "bench/filters_bench.py"):
+        assert mod in names
+
+
+def test_chip_smoke_bounds_use_the_roofline_module():
+    """The kernel checks' bounds take the H100's peaks and the filter
+    kernels' operation count from ``analysis/roofline.py``."""
+    from repro_torch.analysis import roofline
+    smoke = _load_smoke()
+    q, w1 = torch.zeros((256, 256)), torch.zeros((4096, 256, 256))
+    for name in ("filter_mlp", "fused_filter_mlp"):
+        ms, by = smoke._bound(name, (q, w1))
+        assert by == "operations"
+        assert ms == roofline.mlp_operations(4096, 256, 256, 256) \
+            / roofline.H100.peak_flops * 1e3
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
