@@ -45,10 +45,21 @@
    too) beside the tuner's quality knots.  Then the same layer breakdown
    for one iSAX batch.
 8. Holds each kernel against its plain PyTorch version on the card, on the
-   largest inputs the main paths gave it, and times kernel (through its
+   largest inputs the main paths gave it (and, for the fused filter
+   kernel, also on its smallest-Q call: ``search_early``'s single query,
+   which takes the weight-streaming design), and times kernel (through its
    wrapper, and replayed from a CUDA graph without the host-side enqueue),
    plain version and (for the distance kernels) ``torch.cdist``, beside
-   the least time the card could take (f32 CUDA-core peak, HBM rate).
+   the least time the card could take: float32 CUDA-core peak and HBM
+   rate for every kernel, and for the split-TF32 kernels also the split
+   design's bound (its passes x the products at the TF32 tensor-core peak)
+   and the function's one-pass TF32 bound.  Holds ``pairwise_l2`` and the
+   fused entries, untimed, also at ragged shapes no path gives them
+   (partial tiles, m % 4 != 0, h not a multiple of a 16-byte vector), and
+   the fused entries on their largest call's weights at the Q on either
+   side of the stream design's limit, so every instance of both designs
+   is held.  The build's ``-Xptxas -v`` lines (registers, shared memory,
+   spills) are printed per kernel; the redesigned kernels must not spill.
 9. Prints ``{"kernels": [...]}`` and, as the last line,
    ``{"ok": true, "device": {...}}``.  Any failure raises and exits
    non-zero before that line; so does a machine without a CUDA card.
@@ -59,6 +70,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +111,22 @@ KERNELS = {
                    "src/repro/kernels/filter_mlp/kernel.py:66",
                    (1e-4, 1e-5), "f32 sums over m and h in another order"),
 }
+#: design of each kernel, and the tensor-core passes of the split-TF32 ones
+#: (products per float32 multiply-add; bf16/int8 weights are exact in TF32)
+DESIGN = {
+    "pairwise_l2": ("split-TF32 mma.sync, 128x128 tile, 3-stage cp.async", 3),
+    "slab_l2": ("f32 SIMT, 64x64 tile", None),
+    "fused_filter_mlp": ("split-TF32 mma.sync 128-query tiles; f32 weight "
+                         "stream for a few queries", 3),
+    "fused_filter_mlp_bf16": ("split-TF32 mma.sync 128-query tiles; f32 "
+                              "weight stream for a few queries", 2),
+    "fused_filter_mlp_int8": ("split-TF32 mma.sync 128-query tiles; f32 "
+                              "weight stream for a few queries", 2),
+    "box_lb": ("f32 SIMT", None),
+    "filter_mlp": ("f32 SIMT, 64-query tile", None),
+}
+#: the redesigned kernels, whose ptxas report must show no spills
+SPLIT_KERNELS = ("l2_tf32x3_kernel", "mlp_tile_kernel", "mlp_stream_kernel")
 #: the kernels each path launches
 DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb")
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
@@ -141,8 +169,9 @@ def _zero_counters() -> None:
 @contextlib.contextmanager
 def capture_largest_inputs(captured: dict):
     """Record, per kernel, the arguments of its largest call (by output
-    elements) while the main path runs; the wrappers themselves, and their
-    launch counts, are unchanged."""
+    elements) while the main path runs, and for the fused filter entries
+    also those of the call with the fewest queries (under ``<name>@min_q``);
+    the wrappers themselves, and their launch counts, are unchanged."""
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -161,6 +190,10 @@ def capture_largest_inputs(captured: dict):
             name = _naming(args)
             if out.numel() > captured.get(name, (0, None))[0]:
                 captured[name] = (out.numel(), args)
+            if name.startswith("fused_filter_mlp"):
+                n_q = args[0].shape[0]
+                if n_q < captured.get(f"{name}@min_q", (math.inf, None))[0]:
+                    captured[f"{name}@min_q"] = (n_q, args)
             return out
         saved.append((mod, attr, fn))
         setattr(mod, attr, wrapped)
@@ -355,7 +388,7 @@ def _stack_results(rs, n_leaves: int):
 
 
 def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", captured: dict | None = None) -> dict:
     """``search_early`` for the first ``n_early`` queries, k = 1 and 5,
     exact (filters off) and at target 0.99, beside the batched path's
     figures for the same queries (``batched``: ``run_end_to_end``'s
@@ -372,20 +405,22 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
         search.search_early(idx, queries[0], quality_target=target,
                             use_filters=target is not None, **kw)
     results = {}
+    captured = {} if captured is None else captured
     _zero_counters()
-    for k in (1, 5):
-        for name, target in (("exact", None), ("0.99", 0.99)):
-            rs, walls = [], []
-            for i in range(n_early):
-                _sync(device)
-                t0 = time.perf_counter()
-                rs.append(search.search_early(
-                    idx, queries[i], k=k, quality_target=target,
-                    use_filters=target is not None, **kw))
-                _sync(device)
-                walls.append(time.perf_counter() - t0)
-            results[(k, name)] = (_stack_results(rs, idx.n_leaves),
-                                  np.asarray(walls))
+    with capture_largest_inputs(captured):
+        for k in (1, 5):
+            for name, target in (("exact", None), ("0.99", 0.99)):
+                rs, walls = [], []
+                for i in range(n_early):
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    rs.append(search.search_early(
+                        idx, queries[i], k=k, quality_target=target,
+                        use_filters=target is not None, **kw))
+                    _sync(device)
+                    walls.append(time.perf_counter() - t0)
+                results[(k, name)] = (_stack_results(rs, idx.n_leaves),
+                                      np.asarray(walls))
     launches = _launch_counters()
 
     for (k, name), (r, walls) in results.items():
@@ -697,10 +732,13 @@ def _graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(name: str, args) -> tuple:
+def _bound(name: str, args, passes: int | None = None) -> tuple:
     """(least ms, "bytes"|"operations") for one call: every input read once,
-    every output written once, against the H100's f32 and HBM peaks
-    (``repro_torch.analysis.roofline.H100``).  The filter kernels count
+    every output written once, against the H100's HBM rate and its float32
+    CUDA-core peak, or, given ``passes``, ``passes`` times the operations
+    at its TF32 tensor-core peak: with the split design's passes (3, or 2
+    for bf16/int8 weights) the bound of that design, with 1 the function's
+    own bound on the tensor cores (``repro_torch.analysis.roofline.H100``).  The filter kernels count
     ``roofline.mlp_operations``, the bound the filter suite uses too."""
     from repro_torch.analysis import roofline
     if name == "pairwise_l2":
@@ -735,7 +773,8 @@ def _bound(name: str, args) -> tuple:
         n_scales = 2 if w1.dtype.itemsize == 1 else 0
         nbytes = (w1.dtype.itemsize * F * (m * h + h)
                   + 4 * (Q * m + F * (h + 4 + n_scales) + F * Q))
-    t_ops = flops / roofline.H100.peak_flops
+    t_ops = (flops / roofline.H100.peak_flops if passes is None
+             else passes * flops / roofline.H100.tf32_flops)
     t_bytes = nbytes / roofline.H100.hbm_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -752,8 +791,8 @@ def _plain_raw_mlp(q, w1, b1, w2, b2):
     return mlp_ref.filter_predict(w1, b1, w2, b2, q)
 
 
-def check_kernels(captured: dict, launches: dict, power: str) -> list:
-    """Each kernel against its plain version on the main paths' inputs."""
+def _kernel_tables():
+    """(kernel wrapper, plain version, library call or None) per kernel."""
     import torch
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.box_lb import ref as box_ref
@@ -776,55 +815,175 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 "box_lb": box_ref.box_lb,
                 "filter_mlp": _plain_raw_mlp}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
+    return kernel_fn, plain_fn, library_fn
+
+
+def _hold(name: str, args, label: str) -> dict:
+    """One kernel call against its plain version, asserted within the
+    kernel's limit."""
+    import torch
+    _, _, (atol, rtol), why = KERNELS[name]
+    kernel_fn, plain_fn, _ = _kernel_tables()
+    got = kernel_fn[name](*args)
+    torch.cuda.synchronize()
+    want = plain_fn[name](*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    rel = (diff / (want.abs() + 1e-6)).max().item()
+    tol = atol + rtol * want.abs().max().item()
+    shapes = " x ".join(str(tuple(a.shape)) for a in args[:2])
+    log(f"kernel {label} at {shapes}: max_abs_err={err:.3g} "
+        f"max_rel_err={rel:.3g} (tolerance {tol:.3g} absolute = "
+        f"{atol:g} + {rtol:g} x max|plain|: {why})")
+    assert np.isfinite(err) and err <= tol, f"{label} disagrees"
+    return {"shapes": shapes, "max_abs_err": err, "tolerance": tol}
+
+
+def _check_call(name: str, args, label: str, power: str) -> dict:
+    """One kernel call held against its plain version, then timed beside
+    its bounds."""
+    import torch
+    held = _hold(name, args, label)
+    kernel_fn, plain_fn, library_fn = _kernel_tables()
+    if name != "box_lb" and label == name:  # its plain version has no matmul
+        # what the same check reads for a TF32 run of the plain version
+        want = plain_fn[name](*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_err = (plain_fn[name](*args) - want).abs().max().item()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"kernel {name}: a TF32 run of the plain version errs by "
+            f"{tf32_err:.3g}, which the limit "
+            f"{'rejects' if tf32_err > held['tolerance'] else 'would accept'}")
+    ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
+    graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
+    plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a))
+    lib = library_fn.get(name)
+    library_ms = (None if lib is None
+                  else _time_ms(lambda f=lib, a=args: f(*a)))
+    design, passes = DESIGN[name]
+    bound_ms, bound_by = _bound(name, args)
+    split_ms, split_by, tf32_ms, tf32_by = (
+        (None,) * 4 if passes is None
+        else _bound(name, args, passes) + _bound(name, args, 1))
+    tc = ("" if passes is None else
+          f", split design's bound ({passes} TF32 passes) {split_ms:.4f} ms "
+          f"by {split_by}, one-pass TF32 bound {tf32_ms:.4f} ms by {tf32_by}")
+    log(f"kernel {label} [{design}]: {ms:.4f} ms through the wrapper, "
+        f"{graph_ms:.4f} ms replayed from a CUDA graph (no host-side "
+        f"enqueue), plain {plain_ms:.4f} ms, library "
+        f"{library_ms if library_ms is None else f'{library_ms:.4f}'} "
+        f"ms, f32 CUDA-core bound {bound_ms:.4f} ms by {bound_by}{tc} "
+        f"(peaks at 700 W; card limit {power})")
+    return {**held, "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "split_bound_ms": split_ms, "split_bound_by": split_by,
+            "tf32_bound_ms": tf32_ms, "tf32_bound_by": tf32_by,
+            "library_ms": library_ms}
+
+
+#: (Q, B, m) of pairwise_l2's ragged held calls: partial tiles, odd B and
+#: m % 4 != 0 (the unvectorised staging)
+RAGGED_L2 = ((130, 1001, 33), (7, 129, 256))
+
+
+def ragged_calls(device: str = "cuda") -> dict:
+    """Per kernel, argument tuples at shapes no main path gives it (numpy
+    seed 1; the filter weights drawn as the filter suite draws them)."""
+    import torch
+    from repro_torch.bench.filters_bench import _make_stack, _offsets
+    from repro_torch.core import filters
+    from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    rng = np.random.default_rng(1)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device)
+    calls = {"pairwise_l2": [(randn(q, m), randn(b, m))
+                             for q, b, m in RAGGED_L2]}
+    # (F, Q, m, h) of the fused entries: both designs, partial query tiles,
+    # m % 4 != 0 and h not a multiple of a payload's 16-byte vector
+    limit = mlp_kernel.STREAM_MAX_Q
+    for F, n_q, m, h in ((7, 3, 40, 300), (9, 200, 33, 20),
+                         (4, limit, 17, 37), (5, limit + 1, 17, 37)):
+        q = randn(n_q, m)
+        p32 = _make_stack(F, m, h, rng, device)
+        off = _offsets(F, rng, device)
+        for dt in ("float32", "bfloat16", "int8"):
+            p = filters.quantize_mlp(p32, dt)
+            calls.setdefault(mlp_kernel.ENTRY[p["w1"].dtype], []).append(
+                (q, p["w1"], p["b1"], p["w2"], p["b2"], p["y_mean"],
+                 p["y_std"], off, p.get("w1_scale"), p.get("w2_scale")))
+    return calls
+
+
+def check_kernels(captured: dict, launches: dict, power: str) -> list:
+    """Each kernel against its plain version on the main paths' inputs; the
+    fused entries also on their call with the fewest queries and on their
+    largest call's weights at the Q on either side of the stream design's
+    limit; the split-TF32 kernels also at ragged shapes (untimed)."""
+    from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    ragged = ragged_calls()
     rows = []
-    for name, (source, replaces, (atol, rtol), why) in KERNELS.items():
+    for name, (source, replaces, _, _) in KERNELS.items():
         if name not in captured:
             raise AssertionError(f"{name}: never called on the main path")
         args = captured[name][1]
-        got = kernel_fn[name](*args)
-        torch.cuda.synchronize()
-        want = plain_fn[name](*args)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape, (got.shape, want.shape)
-        diff = (got - want).abs()
-        err = diff.max().item()
-        rel = (diff / (want.abs() + 1e-6)).max().item()
-        tol = atol + rtol * want.abs().max().item()
-        shapes = " x ".join(str(tuple(a.shape)) for a in args[:2])
-        log(f"kernel {name} at {shapes}: max_abs_err={err:.3g} "
-            f"max_rel_err={rel:.3g} (tolerance {tol:.3g} absolute = "
-            f"{atol:g} + {rtol:g} x max|plain|: {why})")
-        if name != "box_lb":              # its plain version has no matmul
-            # what the same check reads for a TF32 run of the plain version
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                tf32_err = (plain_fn[name](*args) - want).abs().max().item()
-                torch.cuda.synchronize()
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-            log(f"kernel {name}: a TF32 run of the plain version errs by "
-                f"{tf32_err:.3g}, which the limit "
-                f"{'rejects' if tf32_err > tol else 'would accept'}")
-        assert np.isfinite(err) and err <= tol, f"{name} disagrees"
-        ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
-        graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
-        plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a))
-        lib = library_fn.get(name)
-        library_ms = (None if lib is None
-                      else _time_ms(lambda f=lib, a=args: f(*a)))
-        bound_ms, bound_by = _bound(name, args)
-        log(f"kernel {name}: {ms:.4f} ms through the wrapper, "
-            f"{graph_ms:.4f} ms replayed from a CUDA graph (no host-side "
-            f"enqueue), plain {plain_ms:.4f} ms, library "
-            f"{library_ms if library_ms is None else f'{library_ms:.4f}'} "
-            f"ms, bound {bound_ms:.4f} ms by {bound_by} (peaks at 700 W; "
-            f"card limit {power})")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms})
+        res = _check_call(name, args, name, power)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "split_bound_ms", "split_bound_by",
+                                      "tf32_bound_ms", "tf32_bound_by")},
+               "design": DESIGN[name][0], "graph_ms": res["graph_ms"]}
+        held = list(ragged.get(name, []))
+        if f"{name}@min_q" in captured:
+            small = captured[f"{name}@min_q"][1]
+            n_q = small[0].shape[0]
+            row["smallest_q_call"] = {
+                "Q": n_q, "design": mlp_kernel.regime(n_q),
+                **_check_call(name, small, f"{name} (Q={n_q}, "
+                              f"{mlp_kernel.regime(n_q)} design)", power)}
+            limit = mlp_kernel.STREAM_MAX_Q
+            held += [(args[0][:n].contiguous(),) + tuple(args[1:])
+                     for n in (1, limit, limit + 1)]
+        if held:
+            row["held_calls"] = []
+            for call in held:
+                label = name
+                if name in mlp_kernel.LAUNCHES:
+                    n_q = call[0].shape[0]
+                    label = (f"{name} (Q={n_q}, {mlp_kernel.regime(n_q)} "
+                             f"design)")
+                row["held_calls"].append(_hold(name, call, f"{label}, held"))
+        rows.append(row)
     return rows
+
+
+def _ptxas_report(logs: dict) -> None:
+    """Print each kernel's registers, shared memory and spills from the
+    build's ``-Xptxas -v`` output; the redesigned kernels must not spill."""
+    for lib, text in logs.items():
+        if not text:
+            log(f"  {lib}: already built, no ptxas report")
+        func = "?"
+        for line in text.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                func = entry.group(1)
+                continue
+            if "registers" in line or "spill" in line:
+                log(f"  {lib}: {func}: "
+                    f"{line.removeprefix('ptxas info    :').strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if spill and any(k in func for k in SPLIT_KERNELS):
+                assert spill.groups() == ("0", "0"), f"{func} spills: {line}"
 
 
 def main() -> int:
@@ -844,10 +1003,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    _ptxas_report(logs)
 
     captured: dict = {}
     phases: dict = {}
@@ -864,8 +1020,8 @@ def main() -> int:
     phase("dstree breakdown", search_breakdown, e2e["lfi"], e2e["queries"])
     paths = [e2e["launches"]]
     paths.append(phase("search_early", run_early, e2e["lfi"],
-                       e2e["queries"], e2e["results"],
-                       device="cuda")["launches"])
+                       e2e["queries"], e2e["results"], device="cuda",
+                       captured=captured)["launches"])
     paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
                        e2e["targets"], e2e["results"],
                        device="cuda")["launches"])

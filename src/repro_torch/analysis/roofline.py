@@ -9,8 +9,11 @@ A kernel's least time on the card is the larger of two terms:
 operations and bytes from their shapes, with the reference's counts for
 both variants, so the port's filter benchmark pins each timing to the same
 bound the reference's does.  The device is one NVIDIA H100 SXM at its
-700 W limit: 67 TFLOP/s float32 outside the tensor cores (both kernels run
-in full f32) and 3.35 TB/s HBM3 (NVIDIA's data sheet).  Filter inference
+700 W limit: 67 TFLOP/s float32 outside the tensor cores, 495 TFLOP/s
+TF32 on them (dense), and 3.35 TB/s HBM3 (NVIDIA's data sheet).  The
+filter counts stay against the float32 rate, as the reference's pinned
+bound does; ``tf32_flops`` is for the kernels that run their products as
+split-TF32 passes on the tensor cores (``chip_smoke.py``'s second bound).  Filter inference
 moves nothing between cards, so the reference's link term is left out, and
 so is its reader of compiled XLA artifacts (``roofline_from_compiled``).
 """
@@ -25,11 +28,13 @@ from ..core.filters import WEIGHT_BYTES_PER_EL
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
     name: str
-    peak_flops: float          # operations/s of the kernels' arithmetic type
+    peak_flops: float          # float32 operations/s on the CUDA cores
     hbm_bw: float              # bytes/s
+    tf32_flops: float          # TF32 operations/s on the tensor cores
 
 
-H100 = HardwareSpec("nvidia-h100-sxm", peak_flops=67e12, hbm_bw=3.35e12)
+H100 = HardwareSpec("nvidia-h100-sxm", peak_flops=67e12, hbm_bw=3.35e12,
+                    tf32_flops=495e12)
 
 #: the TPU kernels' query tile and filter group, which the counts follow
 BQ, BF = 128, 8

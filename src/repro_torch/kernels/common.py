@@ -12,8 +12,9 @@
 * **Kernel loader.** Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
   Hopper (``sm_90a``) into a shared library with a plain C interface, at
   first use, into ``build/kernels/`` at the repository root, and bound with
-  ``ctypes``.  The library's file name carries a hash of its source, so an
-  edited source is rebuilt.  Every C entry point returns
+  ``ctypes``.  The library's file name carries a hash of its source and of
+  the ``csrc`` headers it includes, so an edited source or header is
+  rebuilt.  Every C entry point returns
   ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -71,8 +73,25 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes (``#include
+    "…"``, followed through the headers), each once, in include order."""
+    seen = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in _sources(name))
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,6 +7,11 @@ per-filter scales); ``filter_mlp`` is the raw per-filter sweep (float32).
 Each wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, raises if the launch
 reports a CUDA error, and adds one to its entry of :data:`LAUNCHES`.
+
+The fused entries take one of two designs inside the C entry, by the query
+count (:func:`regime`): a weight-streaming block per filter for a few
+queries (``search_early`` asks for one), tensor-core tiles of 128 queries
+otherwise.  One call is one launch either way.
 """
 from __future__ import annotations
 
@@ -25,6 +30,19 @@ LAUNCHES = {"fused_filter_mlp": 0, "fused_filter_mlp_bf16": 0,
 ENTRY = {torch.float32: "fused_filter_mlp",
          torch.bfloat16: "fused_filter_mlp_bf16",
          torch.int8: "fused_filter_mlp_int8"}
+
+#: the largest query count the fused entries send to the stream design
+#: (``FILTER_MLP_STREAM_MAX_Q`` in ``csrc/filter_mlp.cu``; measured on an
+#: H100 with ``repro_torch.bench.fused_designs``, PERF.md)
+STREAM_MAX_Q = 12
+
+
+def regime(n_queries: int) -> str:
+    """The fused kernel's design for ``n_queries`` queries: ``"stream"``
+    (w1 streamed once per 4 queries) or ``"tile"`` (128-query tiles on the
+    tensor cores)."""
+    return "stream" if n_queries <= STREAM_MAX_Q else "tile"
+
 
 _SIGNATURES = {
     "fused_filter_mlp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
