@@ -17,7 +17,8 @@
    launched (the launch counters are zeroed just before the build and read
    just after the last search).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer, and
-   profiles it for the device's busy time and idle share.
+   profiles it for the device's busy time and idle share; breaks the
+   build's training-data collection (``t_collect``) down by step.
 4. Single-query early-termination search (``search_early``, paper Alg. 2 as
    written) on the same DSTree index for 32 of its queries, k = 1 and 5,
    exact and at target 0.99: per-query wall time (median, p90), searched
@@ -42,20 +43,23 @@
    exact == brute force and that all six kernels launched (counters zeroed
    just before the build, read after the last search).  Prints each
    index's recall@1 at target 0.99 on its own calibration split (DSTree's
-   too) beside the tuner's quality knots.  Then the same layer breakdown
-   for one iSAX batch.
+   too) beside the tuner's quality knots.  Then the same layer and
+   collection breakdowns for iSAX.
 8. Holds each kernel against its plain PyTorch version on the card, on the
    largest inputs the main paths gave it (and, for the fused filter
-   kernel, also on its smallest-Q call: ``search_early``'s single query,
-   which takes the weight-streaming design), and times kernel (through its
+   kernel and ``box_lb``, also on its smallest-Q call: ``search_early``'s
+   single query, which takes the weight-streaming design and the
+   few-query path; ``box_lb`` at every shape the paths gave it, with its
+   launches per shape), and times kernel (through its
    wrapper, and replayed from a CUDA graph without the host-side enqueue),
    plain version and (for the distance kernels) ``torch.cdist``, beside
    the least time the card could take: float32 CUDA-core peak and HBM
    rate for every kernel, and for the split-TF32 kernels also the split
    design's bound (its passes x the products at the TF32 tensor-core peak)
-   and the function's one-pass TF32 bound.  Holds ``pairwise_l2`` and the
-   fused entries, untimed, also at ragged shapes no path gives them
-   (partial tiles, m % 4 != 0, h not a multiple of a 16-byte vector), and
+   and the function's one-pass TF32 bound.  Holds the redesigned kernels,
+   untimed, also at ragged shapes (partial tiles, m % 4 != 0, h not a
+   multiple of a 16-byte vector, R and L % 4 != 0, the iSAX build's last
+   slab chunk, box sides at +-inf, d = 5 .. 64, Q = 1 and 33), and
    the fused entries on their largest call's weights at the Q on either
    side of the stream design's limit, so every instance of both designs
    is held.  The build's ``-Xptxas -v`` lines (registers, shared memory,
@@ -67,6 +71,7 @@
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -115,18 +120,22 @@ KERNELS = {
 #: (products per float32 multiply-add; bf16/int8 weights are exact in TF32)
 DESIGN = {
     "pairwise_l2": ("split-TF32 mma.sync, 128x128 tile, 3-stage cp.async", 3),
-    "slab_l2": ("f32 SIMT, 64x64 tile", None),
+    "slab_l2": ("split-TF32 mma.sync, 128 slab rows x 104 queries (queries "
+                "on the n8 axis), 3-stage cp.async, slab index slowest", 3),
     "fused_filter_mlp": ("split-TF32 mma.sync 128-query tiles; f32 weight "
                          "stream for a few queries", 3),
     "fused_filter_mlp_bf16": ("split-TF32 mma.sync 128-query tiles; f32 "
                               "weight stream for a few queries", 2),
     "fused_filter_mlp_int8": ("split-TF32 mma.sync 128-query tiles; f32 "
                               "weight stream for a few queries", 2),
-    "box_lb": ("f32 SIMT", None),
+    "box_lb": ("f32 SIMT, 4 boxes a thread in registers, 16-byte stores, "
+               "grid sized to the SMs; no query tile for a few queries",
+               None),
     "filter_mlp": ("f32 SIMT, 64-query tile", None),
 }
 #: the redesigned kernels, whose ptxas report must show no spills
-SPLIT_KERNELS = ("l2_tf32x3_kernel", "mlp_tile_kernel", "mlp_stream_kernel")
+SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
+                 "mlp_stream_kernel", "box_lb_kernel")
 #: the kernels each path launches
 DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb")
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
@@ -170,8 +179,10 @@ def _zero_counters() -> None:
 def capture_largest_inputs(captured: dict):
     """Record, per kernel, the arguments of its largest call (by output
     elements) while the main path runs, and for the fused filter entries
-    also those of the call with the fewest queries (under ``<name>@min_q``);
-    the wrappers themselves, and their launch counts, are unchanged."""
+    and ``box_lb`` also those of the call with the fewest queries (under
+    ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
+    (count and last arguments, under ``box_lb@shapes``).  The wrappers
+    themselves, and their launch counts, are unchanged."""
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -190,10 +201,14 @@ def capture_largest_inputs(captured: dict):
             name = _naming(args)
             if out.numel() > captured.get(name, (0, None))[0]:
                 captured[name] = (out.numel(), args)
-            if name.startswith("fused_filter_mlp"):
+            if name.startswith("fused_filter_mlp") or name == "box_lb":
                 n_q = args[0].shape[0]
                 if n_q < captured.get(f"{name}@min_q", (math.inf, None))[0]:
                     captured[f"{name}@min_q"] = (n_q, args)
+            if name == "box_lb":
+                shapes = captured.setdefault("box_lb@shapes", {})
+                key = (args[0].shape[0], args[1].shape[0], args[0].shape[1])
+                shapes[key] = (shapes.get(key, (0, None))[0] + 1, args)
             return out
         saved.append((mod, attr, fn))
         setattr(mod, attr, wrapped)
@@ -449,7 +464,7 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
 
 
 def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
-                device: str = "cuda") -> dict:
+                device: str = "cuda", captured: dict | None = None) -> dict:
     """``search_batched_grouped`` on the per-query-target batch, k = 1 and
     5, beside the vectorised per-query batch from ``batched``; asserts the
     reference's serving tolerances between the two and (on the card) that
@@ -459,16 +474,18 @@ def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
     on_card = torch.device(device).type == "cuda"
     per_query = targets["per-query"]
     results = {}
+    captured = {} if captured is None else captured
     _zero_counters()
-    for k in (1, 5):
-        _sync(device)
-        t0 = time.perf_counter()
-        r = search.search_batched_grouped(
-            lfi.index, queries, per_query, k=k,
-            filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
-            tuner=lfi.tuner, device=device)
-        _sync(device)
-        results[k] = (r, time.perf_counter() - t0)
+    with capture_largest_inputs(captured):
+        for k in (1, 5):
+            _sync(device)
+            t0 = time.perf_counter()
+            r = search.search_batched_grouped(
+                lfi.index, queries, per_query, k=k,
+                filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
+                tuner=lfi.tuner, device=device)
+            _sync(device)
+            results[k] = (r, time.perf_counter() - t0)
     launches = _launch_counters()
 
     n = len(queries)
@@ -693,6 +710,90 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
             "kernel_launches": len(kernels)}
 
 
+#: the functions ``collect_training_data`` reaches, timed by
+#: ``collect_breakdown``: (step, module path, attribute)
+COLLECT_STEPS = (
+    ("global queries", "repro_torch.core.filter_training",
+     "make_noisy_queries"),
+    ("nodewise_nn_distances", "repro_torch.core.filter_training",
+     "nodewise_nn_distances"),
+    ("lower bounds", "repro_torch.core.bounds", "lower_bounds"),
+    ("local queries", "repro_torch.core.filter_training",
+     "make_local_queries"),
+    ("local_nn_distances", "repro_torch.core.filter_training",
+     "local_nn_distances"),
+    ("gather", "repro_torch.kernels.l2_scan.ops", "gather_leaf_slabs"),
+    ("pairwise_l2", "repro_torch.kernels.l2_scan.ops", "shared_slab_l2"),
+    ("slab_l2", "repro_torch.kernels.l2_scan.ops", "slab_l2"),
+    ("masked min", "repro_torch.kernels.l2_scan.ops", "slab_masked_min"))
+
+
+def collect_breakdown(lfi, label: str = "") -> dict:
+    """Where the build's ``t_collect`` goes.  ``filter_training.
+    collect_training_data`` is called twice on the built index, warm, with
+    the build's generator seed (so the same queries): once as it is, then
+    with each function of ``COLLECT_STEPS`` wrapped in a host-clock timer
+    around a device synchronize.  A call inside one of the two sweeps is
+    filed under the sweep (``nodewise_nn_distances/gather``); the sweep's
+    ``rest`` is what it spends outside the wrapped calls (the all-leaves
+    masked minimum, which the engine computes inline, and the chunk loop).
+    The wrappers' synchronizations make the timed call slower than the
+    plain one; both are printed."""
+    import torch
+    from repro_torch.core import filter_training
+
+    idx, cfg = lfi.index, lfi.config
+    dev = idx.device
+    times: dict = {}
+    within: list = []
+
+    def call():
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        _sync(dev)
+        t0 = time.perf_counter()
+        filter_training.collect_training_data(idx, lfi.leaf_ids, cfg.n_global,
+                                              cfg.n_local, gen)
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    def timed(step, fn):
+        def wrapped(*args, **kw):
+            key = "/".join(within[-1:] + [step])
+            within.append(step)
+            _sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                _sync(dev)
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+                within.pop()
+        return wrapped
+
+    plain = call()
+    saved = []
+    for step, module, attr in COLLECT_STEPS:
+        mod = importlib.import_module(module)
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, timed(step, getattr(mod, attr)))
+    try:
+        wrapped_call = call()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    for sweep in ("nodewise_nn_distances", "local_nn_distances"):
+        inner = sum(v for k, v in times.items()
+                    if k.startswith(sweep + "/"))
+        times[f"{sweep}/rest"] = times[sweep] - inner
+    ms = {k: round(v * 1e3, 3) for k, v in times.items()}
+    ms.update({"timed call": round(wrapped_call * 1e3, 3),
+               "plain call": round(plain * 1e3, 3)})
+    log(f"{label}t_collect breakdown (ms, warm, synchronized per step): "
+        + json.dumps(ms) + "; the build's cold t_collect "
+        f"{lfi.build_report['t_collect'] * 1e3:.3f}")
+    return ms
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     import torch
     fn()
@@ -889,11 +990,38 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
 #: (Q, B, m) of pairwise_l2's ragged held calls: partial tiles, odd B and
 #: m % 4 != 0 (the unvectorised staging)
 RAGGED_L2 = ((130, 1001, 33), (7, 129, 256))
+#: (F, Nq, R, m) of slab_l2's: the iSAX build's last chunk (88 slabs), Nq
+#: not a multiple of the tile's 104 queries, R % 4 != 0 (unvectorised
+#: stores), m % 4 != 0 (unvectorised staging), m below one 32-deep stage
+RAGGED_SLAB = ((88, 200, 256, 256), (3, 130, 97, 256), (2, 50, 64, 33),
+               (4, 9, 300, 12))
+#: (Q, L, d) of box_lb's: the few-query path (Q = 1) and the staged one
+#: (Q = 33), d = 5 and 64 (the generic path), 8 and 16 (registers), every
+#: L % 4 (rows off 16 bytes); the boxes carry +-inf sides
+RAGGED_BOX = ((1, 4093, 16), (33, 1001, 8), (33, 130, 5), (7, 517, 64),
+              (4, 4096, 16), (40, 7479, 8))
+
+
+def _box_args(rng, Q: int, L: int, d: int, device: str) -> tuple:
+    """Points and boxes with open sides at -inf/+inf (as the SAX extremes),
+    one empty box (lo = +inf) and one with a NaN side: the last two reach
+    the kernel's guarded recompute."""
+    import torch
+    q = rng.standard_normal((Q, d)).astype(np.float32)
+    c = rng.standard_normal((L, d)).astype(np.float32)
+    w = np.abs(rng.standard_normal((L, d))).astype(np.float32)
+    lo, hi = c - w, c + w
+    lo[rng.random((L, d)) < 0.1] = -np.inf
+    hi[rng.random((L, d)) < 0.1] = np.inf
+    lo[L // 2, 0] = np.inf
+    hi[L // 3, d - 1] = np.nan
+    return tuple(torch.as_tensor(a, device=device) for a in (q, lo, hi))
 
 
 def ragged_calls(device: str = "cuda") -> dict:
-    """Per kernel, argument tuples at shapes no main path gives it (numpy
-    seed 1; the filter weights drawn as the filter suite draws them)."""
+    """Per kernel, argument tuples at shapes its timed calls do not cover
+    (numpy seed 1; the filter weights drawn as the filter suite draws
+    them)."""
     import torch
     from repro_torch.bench.filters_bench import _make_stack, _offsets
     from repro_torch.core import filters
@@ -918,14 +1046,44 @@ def ragged_calls(device: str = "cuda") -> dict:
             calls.setdefault(mlp_kernel.ENTRY[p["w1"].dtype], []).append(
                 (q, p["w1"], p["b1"], p["w2"], p["b2"], p["y_mean"],
                  p["y_std"], off, p.get("w1_scale"), p.get("w2_scale")))
+    calls["slab_l2"] = [(randn(F, nq, m), randn(F, r, m))
+                        for F, nq, r, m in RAGGED_SLAB]
+    calls["box_lb"] = [_box_args(rng, Q, L, d, device)
+                       for Q, L, d in RAGGED_BOX]
     return calls
+
+
+def _q_label(name: str, n_q: int) -> str:
+    """A call's label by its query count; the fused entries' also names the
+    design their Q takes."""
+    from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    if name in mlp_kernel.LAUNCHES:
+        return f"{name} (Q={n_q}, {mlp_kernel.regime(n_q)} design)"
+    return f"{name} (Q={n_q})"
+
+
+def _box_shapes(captured: dict, power: str) -> list:
+    """``box_lb`` at every distinct shape the main paths gave it: its
+    launches there, held and timed (the largest, the batches', Q = 1)."""
+    rows = []
+    for (Q, L, d), (count, args) in sorted(
+            captured.get("box_lb@shapes", {}).items(),
+            key=lambda kv: -kv[1][0]):
+        res = _check_call("box_lb", args, f"box_lb (Q={Q}, L={L}, d={d})",
+                          power)
+        rows.append({"Q": Q, "L": L, "d": d, "launches": count,
+                     **{k: res[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                            "plain_ms", "bound_ms")}})
+    return rows
 
 
 def check_kernels(captured: dict, launches: dict, power: str) -> list:
     """Each kernel against its plain version on the main paths' inputs; the
-    fused entries also on their call with the fewest queries and on their
-    largest call's weights at the Q on either side of the stream design's
-    limit; the split-TF32 kernels also at ragged shapes (untimed)."""
+    fused entries and ``box_lb`` also on their call with the fewest queries
+    (``box_lb`` at every shape the paths gave it, with its launches there),
+    the fused entries on their largest call's weights at the Q on either
+    side of the stream design's limit; the redesigned kernels also at
+    ragged shapes (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     ragged = ragged_calls()
     rows = []
@@ -945,21 +1103,23 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
         if f"{name}@min_q" in captured:
             small = captured[f"{name}@min_q"][1]
             n_q = small[0].shape[0]
+            design = ({"design": mlp_kernel.regime(n_q)}
+                      if name in mlp_kernel.LAUNCHES else {})
             row["smallest_q_call"] = {
-                "Q": n_q, "design": mlp_kernel.regime(n_q),
-                **_check_call(name, small, f"{name} (Q={n_q}, "
-                              f"{mlp_kernel.regime(n_q)} design)", power)}
+                "Q": n_q, **design,
+                **_check_call(name, small, _q_label(name, n_q), power)}
+        if name in mlp_kernel.LAUNCHES and "smallest_q_call" in row:
             limit = mlp_kernel.STREAM_MAX_Q
             held += [(args[0][:n].contiguous(),) + tuple(args[1:])
                      for n in (1, limit, limit + 1)]
+        if name == "box_lb":
+            row["by_shape"] = _box_shapes(captured, power)
         if held:
             row["held_calls"] = []
             for call in held:
                 label = name
-                if name in mlp_kernel.LAUNCHES:
-                    n_q = call[0].shape[0]
-                    label = (f"{name} (Q={n_q}, {mlp_kernel.regime(n_q)} "
-                             f"design)")
+                if name in mlp_kernel.LAUNCHES or name == "box_lb":
+                    label = _q_label(name, call[0].shape[0])
                 row["held_calls"].append(_hold(name, call, f"{label}, held"))
         rows.append(row)
     return rows
@@ -1018,13 +1178,15 @@ def main() -> int:
     e2e = phase("dstree", run_end_to_end, device="cuda", captured=captured,
                 series=series)
     phase("dstree breakdown", search_breakdown, e2e["lfi"], e2e["queries"])
+    phase("dstree collect breakdown", collect_breakdown, e2e["lfi"],
+          "dstree ")
     paths = [e2e["launches"]]
     paths.append(phase("search_early", run_early, e2e["lfi"],
                        e2e["queries"], e2e["results"], device="cuda",
                        captured=captured)["launches"])
     paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
-                       e2e["targets"], e2e["results"],
-                       device="cuda")["launches"])
+                       e2e["targets"], e2e["results"], device="cuda",
+                       captured=captured)["launches"])
     n_filters = len(e2e["lfi"].leaf_ids)
     del e2e                               # the DSTree index leaves the card
     paths.append(phase("filter suite", run_filter_suite, n_filters,
@@ -1033,6 +1195,7 @@ def main() -> int:
                  series=series)
     phase("isax breakdown", search_breakdown, isax["lfi"], isax["queries"],
           reps=3, label="isax ")
+    phase("isax collect breakdown", collect_breakdown, isax["lfi"], "isax ")
     paths.append(isax["launches"])
     launches = {name: sum(p.get(name, 0) for p in paths) for name in KERNELS}
     log("launches on all paths: " + json.dumps(launches))

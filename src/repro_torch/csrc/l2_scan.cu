@@ -14,30 +14,44 @@
 // At the build's shapes (Q = 600 global queries, B = 65,536 leaf rows,
 // m = 256) that is ~300 operations per byte: bound by operations, 0.30 ms at
 // the float32 CUDA-core rate (67 TFLOP/s), 0.12 ms for the three TF32
-// passes at the tensor-core rate (495 TFLOP/s).
+// passes at the tensor-core rate (495 TFLOP/s).  The slab sweep's slabs are
+// small (Nq = 200 queries against R = 256 rows of m = 256): 6.8 GFLOP and
+// 172 MB for 256 slabs, so on the split route its bytes bind (0.051 ms
+// against 0.041 ms of operations).
 //
-// pairwise_l2 (l2_tf32x3_kernel): the dot products run on the tensor cores
-// as split-TF32 mma.sync (tf32x3.cuh: three products per float32 pair),
-// which keeps float32 accuracy (a one-pass TF32 product would not: the
-// build's training targets and the search's prune decisions compare these
-// values).  Each 32-deep stage is summed on the tensor cores and added into
-// float32 registers on the CUDA cores, which keeps the tensor cores'
-// rounding toward zero to an eighth of the sum.  A block of 8 warps owns a
-// 128 x 128 output tile (warp tile 64 x 32, 16 m16n8k8 tiles) and walks m in
-// 32-deep stages through a ring of 3 cp.async stages in dynamic shared
-// memory (108 KB), so two stages' loads are in flight while one is
-// computed.  Rows are padded to 36 words, which makes both the fragment
-// loads and the norms' float4 reads free of bank conflicts.  The epilogue
-// stages the distances in shared memory and writes whole 512-byte row
-// segments.  At the build's shape that is 512 x 5 blocks, the last row tile
-// ragged (600 = 4 x 128 + 88); ragged edges are zero-filled by cp.async and
-// masked on store, nothing is padded in device memory.  The two running
-// sums take 128 registers a thread (~220 in all), so one block fits an SM.
-
-// slab_l2 (l2_tile_kernel) is still the first port's plain register-tiled
-// loop on the CUDA cores (64 x 64 tile, 4 x 4 outputs per thread, 16-deep
-// synchronous stages), the slab index as grid dimension z; it is the next
-// kernel to take the tensor-core body.
+// Both kernels share one body (l2_tile below): the dot products run on the
+// tensor cores as split-TF32 mma.sync (tf32x3.cuh: three products per
+// float32 pair), which keeps float32 accuracy (a one-pass TF32 product
+// would not: the build's training targets and the search's prune decisions
+// compare these values).  Each 32-deep stage is summed on the tensor cores
+// and added into float32 registers on the CUDA cores, which keeps the
+// tensor cores' rounding toward zero to an eighth of the sum.  A block of 8
+// warps walks m in 32-deep stages through a ring of 3 cp.async stages in
+// dynamic shared memory (~100-108 KB), so two stages' loads are in flight
+// while one is computed.  Rows are padded to 36 words, which makes both the
+// fragment loads and the norms' float4 reads free of bank conflicts.  The
+// epilogue stages the distances in shared memory and writes whole row
+// segments.  Ragged edges are zero-filled by cp.async and masked on store;
+// nothing is padded in device memory.  The two running sums take a
+// register each per output of the warp tile, so one block fits an SM.
+//
+// pairwise_l2 (l2_tf32x3_kernel): a 128 x 128 tile (queries x series, warp
+// tile 64 x 32, 16 m16n8k8 tiles).  At the build's shape that is 512 x 5
+// blocks, the last row tile ragged (600 = 4 x 128 + 88).
+//
+// slab_l2 (slab_tf32x3_kernel): the same body batched over slabs, the slab
+// index as grid dimension z, so all tiles of one slab are adjacent in
+// launch order and a slab's q and s come from device memory once (the
+// second read hits the 50 MB L2).  Each slab offsets q, s and out by its
+// own stride; the 16-byte paths need m % 4 == 0 (every input slab and row
+// then starts on 16 bytes) and R % 4 == 0 (every output row).  A slab of
+// the main path holds 200 queries: a 128 x 128 tile with the queries on
+// the m16 row axis computes them as 256 rows, 22% zeros.  So the operands
+// swap: the slab rows take the row axis (128, 8 warps of one m16 tile) and
+// the queries the n8-granular column axis, 104 a block (13 n8 tiles a warp),
+// so 200 queries cost 208 columns; the epilogue stages the tile transposed,
+// which keeps the output (Nq, R).  On the H100 this tile was 4% faster than
+// the 128 x 128 one at 256 x 200 x 256 x 256 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -45,132 +59,46 @@
 
 namespace {
 
-constexpr int BM = 64;   // query rows per block
-constexpr int BN = 64;   // series rows per block
-constexpr int BK = 16;   // depth of one shared-memory stage
-constexpr int THREADS = 256;
-
-__global__ void __launch_bounds__(THREADS)
-l2_tile_kernel(const float* __restrict__ q, const float* __restrict__ s,
-               float* __restrict__ out, int nq, int ns, int m,
-               long long q_stride, long long s_stride, long long o_stride) {
-  const long long b = blockIdx.z;
-  q += b * q_stride;
-  s += b * s_stride;
-  out += b * o_stride;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  __shared__ float As[BK][BM + 4];   // q tile, transposed: As[k][row]
-  __shared__ float Bs[BK][BN + 4];   // s tile, transposed: Bs[k][row]
-  __shared__ float qn[BM];
-  __shared__ float sn[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;           // output columns tx*4 .. tx*4+3
-  const int ty = tid / 16;           // output rows    ty*4 .. ty*4+3
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;                  // threads 0..63: |q_row|^2, 64..127: |s_row|^2
-
-  for (int k0 = 0; k0 < m; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < nq && gk < m) ? q[(long long)gr * m + gk] : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const int gr = col0 + r, gk = k0 + kk;
-      Bs[kk][r] = (gr < ns && gk < m) ? s[(long long)gr * m + gk] : 0.f;
-    }
-    __syncthreads();
-
-    if (tid < BM) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) norm = fmaf(As[kk][tid], As[kk][tid], norm);
-    } else if (tid < BM + BN) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk)
-        norm = fmaf(Bs[kk][tid - BM], Bs[kk][tid - BM], norm);
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  if (tid < BM) qn[tid] = norm;
-  else if (tid < BM + BN) sn[tid - BM] = norm;
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= nq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= ns) continue;
-      const float d2 = qn[ty * 4 + i] + sn[tx * 4 + j] - 2.f * acc[i][j];
-      out[(long long)r * ns + c] = sqrtf(fmaxf(d2, 0.f));
-    }
-  }
-}
-
-int launch(const float* q, const float* s, float* out, int batch, int nq,
-           int ns, int m, long long q_stride, long long s_stride,
-           long long o_stride, cudaStream_t stream) {
-  if (batch <= 0 || nq <= 0 || ns <= 0) return cudaGetLastError();
-  dim3 grid((ns + BN - 1) / BN, (nq + BM - 1) / BM, batch);
-  l2_tile_kernel<<<grid, THREADS, 0, stream>>>(q, s, out, nq, ns, m, q_stride,
-                                               s_stride, o_stride);
-  return cudaGetLastError();
-}
-
-
-// ---- pairwise_l2: split-TF32 tensor cores --------------------------------
-
-constexpr int WARPS_M = 2;              // warps along the query rows
-constexpr int WARPS_N = 4;              // warps along the series rows
-constexpr int MI = 4;                   // m16 row tiles per warp
-constexpr int NI = 4;                   // n8 column tiles per warp
-constexpr int TM = WARPS_M * 16 * MI;   // query rows per block
-constexpr int TN = WARPS_N * 8 * NI;    // series rows per block
 constexpr int TK = 32;                  // depth of one stage
 constexpr int TLD = TK + 4;             // staged row stride (words)
 constexpr int STAGES = 3;
-constexpr int TC_THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int STAGE_FLOATS = (TM + TN) * TLD;
-constexpr int OLD = TN + 4;             // row stride of the staged output
-constexpr int TC_SMEM = STAGES * STAGE_FLOATS * sizeof(float);   // 108 KB
-static_assert(TM * OLD <= STAGES * STAGE_FLOATS, "output tile fits the ring");
-static_assert(TM + TN <= TC_THREADS, "a thread per norm");
+constexpr int THREADS = 256;            // 8 warps
 
-__global__ void __launch_bounds__(TC_THREADS, 1)
-l2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ s,
-                 float* __restrict__ out, int nq, int ns, int m, int vec_in,
-                 int vec_out) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float qn[TM];
-  __shared__ float sn[TN];
+// One output tile of a (na x m) by (nb x m) product: rows of A on the m16
+// axis, rows of B on the n8 axis; with Q_ON_N the queries are B and the
+// output (queries x series) is written transposed.
+template <int WARPS_M, int WARPS_N, int MI, int NI, bool Q_ON_N>
+struct Tile {
+  static constexpr int TM = WARPS_M * 16 * MI;   // A rows per block
+  static constexpr int TN = WARPS_N * 8 * NI;    // B rows per block
+  static constexpr int TQ = Q_ON_N ? TN : TM;    // query rows of the tile
+  static constexpr int TS = Q_ON_N ? TM : TN;    // series rows of the tile
+  static constexpr int STAGE_FLOATS = (TM + TN) * TLD;
+  static constexpr int OLD = TS + 4;             // staged output row stride
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * sizeof(float);
+  static_assert(WARPS_M * WARPS_N * 32 == THREADS, "8 warps");
+  static_assert(TQ * OLD <= STAGES * STAGE_FLOATS, "output tile fits");
+  static_assert(TM + TN <= THREADS, "a thread per norm");
+  static_assert(TS % 4 == 0, "whole float4s per staged output row");
+  static_assert(!Q_ON_N || OLD % 32 == 4, "conflict-free transposed stores");
+};
 
+template <int WARPS_M, int WARPS_N, int MI, int NI, bool Q_ON_N>
+__device__ __forceinline__ void l2_tile(const float* __restrict__ q,
+                                        const float* __restrict__ s,
+                                        float* __restrict__ out, int nq,
+                                        int ns, int m, int vec_in,
+                                        int vec_out, float* smem) {
+  using T = Tile<WARPS_M, WARPS_N, MI, NI, Q_ON_N>;
+  constexpr int TM = T::TM, TN = T::TN, TQ = T::TQ, TS = T::TS;
+  constexpr int OLD = T::OLD, STAGE_FLOATS = T::STAGE_FLOATS;
+  __shared__ float an[TM];              // |A row|^2
+  __shared__ float bn[TN];              // |B row|^2
+
+  const float* a_src = Q_ON_N ? s : q;
+  const float* b_src = Q_ON_N ? q : s;
+  const int na = Q_ON_N ? ns : nq;
+  const int nb = Q_ON_N ? nq : ns;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -189,14 +117,14 @@ l2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ s,
     for (int j = 0; j < NI; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dot[i][j][e] = 0.f;
-  float norm = 0.f;   // threads 0..TM-1: |q_row|^2, then TN |s_row|^2
+  float norm = 0.f;   // threads 0..TM-1: |A row|^2, then TN |B row|^2
 
   auto load = [&](int stage, int k_stage) {
     float* a = smem + stage * STAGE_FLOATS;
-    tf32x3::stage_tile<float, TM, TK, TLD, TC_THREADS>(
-        a, q, row0, nq, k_stage * TK, m, vec_in, tid);
-    tf32x3::stage_tile<float, TN, TK, TLD, TC_THREADS>(
-        a + TM * TLD, s, col0, ns, k_stage * TK, m, vec_in, tid);
+    tf32x3::stage_tile<float, TM, TK, TLD, THREADS>(
+        a, a_src, row0, na, k_stage * TK, m, vec_in, tid);
+    tf32x3::stage_tile<float, TN, TK, TLD, THREADS>(
+        a + TM * TLD, b_src, col0, nb, k_stage * TK, m, vec_in, tid);
   };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -260,55 +188,112 @@ l2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ s,
   }
   tf32x3::cp_async_wait<0>();
 
-  if (tid < TM) qn[tid] = norm;
-  else if (tid < TM + TN) sn[tid - TM] = norm;
+  if (tid < TM) an[tid] = norm;
+  else if (tid < TM + TN) bn[tid - TM] = norm;
   __syncthreads();                      // norms written, the ring is free
 
-  float* tile = smem;                   // [TM][OLD] distances
+  float* tile = smem;                   // [TQ][OLD] distances
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = wm * 16 * MI + i * 16 + g + half * 8;
-        const int c = wn * 8 * NI + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(tile + r * OLD + c) = make_float2(
-            sqrtf(fmaxf(qn[r] + sn[c] - 2.f * dot[i][j][2 * half], 0.f)),
-            sqrtf(fmaxf(qn[r] + sn[c + 1] - 2.f * dot[i][j][2 * half + 1],
-                        0.f)));
+        const int r = wm * 16 * MI + i * 16 + g + half * 8;   // A row
+        const int c = wn * 8 * NI + j * 8 + 2 * t;            // B rows c, c+1
+        const float d0 =
+            sqrtf(fmaxf(an[r] + bn[c] - 2.f * dot[i][j][2 * half], 0.f));
+        const float d1 = sqrtf(
+            fmaxf(an[r] + bn[c + 1] - 2.f * dot[i][j][2 * half + 1], 0.f));
+        if (Q_ON_N) {   // transposed: lanes (g, t) hit banks 8t + g
+          tile[c * OLD + r] = d0;
+          tile[(c + 1) * OLD + r] = d1;
+        } else {
+          *reinterpret_cast<float2*>(tile + r * OLD + c) = make_float2(d0, d1);
+        }
       }
   __syncthreads();
 
+  const int q0 = Q_ON_N ? col0 : row0;  // first query row of the tile
+  const int s0 = Q_ON_N ? row0 : col0;  // first series row of the tile
   if (vec_out) {                        // ns % 4 == 0: whole float4s
-    for (int e = tid; e < TM * TN / 4; e += TC_THREADS) {
-      const int r = e / (TN / 4), c = (e % (TN / 4)) * 4;
-      if (row0 + r < nq && col0 + c < ns)
-        *reinterpret_cast<float4*>(out + (long long)(row0 + r) * ns + col0 +
-                                   c) =
+    for (int e = tid; e < TQ * TS / 4; e += THREADS) {
+      const int r = e / (TS / 4), c = (e % (TS / 4)) * 4;
+      if (q0 + r < nq && s0 + c < ns)
+        *reinterpret_cast<float4*>(out + (long long)(q0 + r) * ns + s0 + c) =
             *reinterpret_cast<const float4*>(tile + r * OLD + c);
     }
   } else {
-    for (int e = tid; e < TM * TN; e += TC_THREADS) {
-      const int r = e / TN, c = e % TN;
-      if (row0 + r < nq && col0 + c < ns)
-        out[(long long)(row0 + r) * ns + col0 + c] = tile[r * OLD + c];
+    for (int e = tid; e < TQ * TS; e += THREADS) {
+      const int r = e / TS, c = e % TS;
+      if (q0 + r < nq && s0 + c < ns)
+        out[(long long)(q0 + r) * ns + s0 + c] = tile[r * OLD + c];
     }
   }
+}
+
+// ---- pairwise_l2 ---------------------------------------------------------
+
+using PairTile = Tile<2, 4, 4, 4, false>;
+
+__global__ void __launch_bounds__(THREADS, 1)
+l2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                 float* __restrict__ out, int nq, int ns, int m, int vec_in,
+                 int vec_out) {
+  extern __shared__ __align__(16) float smem[];
+  l2_tile<2, 4, 4, 4, false>(q, s, out, nq, ns, m, vec_in, vec_out, smem);
 }
 
 int launch_pairwise(const float* q, const float* s, float* out, int nq,
                     int ns, int m, cudaStream_t stream) {
   if (nq <= 0 || ns <= 0) return cudaGetLastError();
   cudaError_t err = cudaFuncSetAttribute(
-      l2_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+      l2_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      PairTile::SMEM);
   if (err != cudaSuccess) return err;
   const int vec_in =
       m % 4 == 0 && tf32x3::aligned16(q) && tf32x3::aligned16(s);
   const int vec_out = ns % 4 == 0 && tf32x3::aligned16(out);
-  dim3 grid((ns + TN - 1) / TN, (nq + TM - 1) / TM);
-  l2_tf32x3_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(q, s, out, nq, ns,
-                                                          m, vec_in, vec_out);
+  dim3 grid((ns + PairTile::TN - 1) / PairTile::TN,
+            (nq + PairTile::TM - 1) / PairTile::TM);
+  l2_tf32x3_kernel<<<grid, THREADS, PairTile::SMEM, stream>>>(
+      q, s, out, nq, ns, m, vec_in, vec_out);
+  return cudaGetLastError();
+}
+
+// ---- slab_l2 -------------------------------------------------------------
+
+using SlabTile = Tile<8, 1, 1, 13, true>;   // 128 slab rows x 104 queries
+
+__global__ void __launch_bounds__(THREADS, 1)
+slab_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                   float* __restrict__ out, int nq, int ns, int m,
+                   long long q_stride, long long s_stride,
+                   long long o_stride, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) float smem[];
+  const long long b = blockIdx.z;
+  l2_tile<8, 1, 1, 13, true>(q + b * q_stride, s + b * s_stride,
+                             out + b * o_stride, nq, ns, m, vec_in, vec_out,
+                             smem);
+}
+
+int launch_slab(const float* q, const float* s, float* out, int batch,
+                int nq, int ns, int m, cudaStream_t stream) {
+  if (batch <= 0 || nq <= 0 || ns <= 0) return cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(
+      slab_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SlabTile::SMEM);
+  if (err != cudaSuccess) return err;
+  // every slab's base, not only the first, must sit on 16 bytes
+  const int vec_in =
+      m % 4 == 0 && tf32x3::aligned16(q) && tf32x3::aligned16(s);
+  const int vec_out = ns % 4 == 0 && tf32x3::aligned16(out);
+  // slab rows on the tile's m16 axis, queries on its n8 axis
+  dim3 grid((nq + SlabTile::TN - 1) / SlabTile::TN,
+            (ns + SlabTile::TM - 1) / SlabTile::TM, batch);
+  slab_tf32x3_kernel<<<grid, THREADS, SlabTile::SMEM, stream>>>(
+      q, s, out, nq, ns, m, (long long)nq * m, (long long)ns * m,
+      (long long)nq * ns, vec_in, vec_out);
   return cudaGetLastError();
 }
 
@@ -326,8 +311,8 @@ extern "C" int pairwise_l2(const void* queries, const void* series, void* out,
 // queries (F, Nq, m), slabs (F, R, m) -> out (F, Nq, R); F <= 65535.
 extern "C" int slab_l2(const void* queries, const void* slabs, void* out,
                        int F, int Nq, int R, int m, void* stream) {
-  return launch(static_cast<const float*>(queries),
-                static_cast<const float*>(slabs), static_cast<float*>(out), F,
-                Nq, R, m, (long long)Nq * m, (long long)R * m,
-                (long long)Nq * R, static_cast<cudaStream_t>(stream));
+  return launch_slab(static_cast<const float*>(queries),
+                     static_cast<const float*>(slabs),
+                     static_cast<float*>(out), F, Nq, R, m,
+                     static_cast<cudaStream_t>(stream));
 }

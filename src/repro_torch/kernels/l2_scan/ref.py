@@ -6,8 +6,9 @@ compute (‖q‖² + ‖s‖² − 2·q·sᵀ, then sqrt(max(·, 0))); the wrapp
 against them on the card.  ``pairwise_l2`` is the direct (diff-square) form.
 
 ``split_tf32_matmul`` emulates, on the CPU, the split-TF32 tensor-core
-products of the pairwise and fused filter kernels (``csrc/tf32x3.cuh``),
-and ``pairwise_l2_split_tf32`` the pairwise kernel with them.  The tests
+products of the l2 and fused filter kernels (``csrc/tf32x3.cuh``), and
+``pairwise_l2_split_tf32`` / ``slab_l2_split_tf32`` the pairwise and slab
+kernels with them.  The tests
 use them to hold the split's error to the card's limits before a chip run;
 no path runs them.
 """
@@ -117,4 +118,20 @@ def pairwise_l2_split_tf32(queries: torch.Tensor,
     sn = (s * s).sum(-1)
     d2 = qn[:, None] + sn[None, :] - 2.0 * split_tf32_matmul(
         q, s.T, flush_every=4)
+    return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
+def slab_l2_split_tf32(queries: torch.Tensor,
+                       slabs: torch.Tensor) -> torch.Tensor:
+    """What the slab kernel computes: ``slab_l2_matmul`` with each slab's dot
+    products taken as :func:`split_tf32_matmul` steps (the pairwise body,
+    summed per 32-deep stage).  The kernel's default tile gives the slab
+    rows the A operand, which only swaps the order of the two small
+    products in each step."""
+    q = queries.float()
+    s = slabs.float()
+    qn = (q * q).sum(-1)
+    sn = (s * s).sum(-1)
+    d2 = qn[:, :, None] + sn[:, None, :] - 2.0 * split_tf32_matmul(
+        q, s.transpose(-1, -2), flush_every=4)
     return torch.sqrt(torch.clamp_min(d2, 0.0))

@@ -158,6 +158,16 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "filter_mlp"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
+    steps = smoke.collect_breakdown(out["lfi"], "dstree ")
+    assert set(steps) == {
+        "global queries", "nodewise_nn_distances",
+        "nodewise_nn_distances/gather", "nodewise_nn_distances/pairwise_l2",
+        "nodewise_nn_distances/rest", "lower bounds", "local queries",
+        "local_nn_distances", "local_nn_distances/gather",
+        "local_nn_distances/slab_l2", "local_nn_distances/masked min",
+        "local_nn_distances/rest", "timed call", "plain call"}
+    assert min(steps.values()) >= 0 and steps["nodewise_nn_distances"] \
+        <= steps["timed call"]
     isax = smoke.run_isax(n=2000, m=64, n_queries=16, n_brute=8,
                           leaf_capacity=64, n_global=60, n_local=16,
                           epochs=3, device="cpu")
@@ -170,6 +180,7 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
     assert "target=per-query" in printed
     assert "breakdown k=5 target=0.99" in printed
     assert "isax exact search == brute force on 8 queries" in printed
+    assert "dstree t_collect breakdown (ms, warm" in printed
     for payload in smoke.PAYLOADS:
         assert f"isax payload={payload}" in printed
 

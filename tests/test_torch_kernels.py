@@ -201,7 +201,8 @@ def test_filter_predict_fused_quantized_matches_reference(F, Q, m, h,
 
 
 @pytest.mark.parametrize("Q,L,d", [(1, 1, 4), (9, 200, 16), (150, 37, 8),
-                                   (70, 130, 64)])
+                                   (70, 130, 64), (7, 1003, 5),
+                                   (1, 4093, 16)])
 def test_box_lb_matches_reference(Q, L, d):
     rng = np.random.default_rng(Q + L + d)
     q = _rand(rng, Q, d)

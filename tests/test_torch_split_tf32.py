@@ -1,8 +1,8 @@
 """The split-TF32 products of the port's tensor-core kernels, rehearsed on
 the CPU, and what stays fixed around the redesigned kernels.
 
-``pairwise_l2`` and the fused filter kernel's tile design take their
-products on the tensor cores as split TF32 (``csrc/tf32x3.cuh``).  The CUDA
+``pairwise_l2``, ``slab_l2`` and the fused filter kernel's tile design take
+their products on the tensor cores as split TF32 (``csrc/tf32x3.cuh``).  The CUDA
 kernels run only on the card; their arithmetic is emulated here
 (``kernels/l2_scan/ref.py`` ``split_tf32_matmul``: TF32 rounding by bit
 operations, one m16n8k8 step per 8-deep slice, each step's sum rounded
@@ -23,10 +23,12 @@ import pytest
 import torch
 
 from repro.core import filters as j_filters
+from repro.kernels.box_lb import ops as j_box_ops
 from repro.kernels.filter_mlp import ops as j_mlp_ops
 from repro.kernels.l2_scan import ops as j_l2_ops
 from repro_torch.kernels import common
 from repro_torch.kernels.box_lb import kernel as box_kernel
+from repro_torch.kernels.box_lb import ref as box_ref
 from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
 from repro_torch.kernels.filter_mlp import ref as mlp_ref
 from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -131,6 +133,31 @@ def test_pairwise_split_tf32_within_the_chip_limit():
     one_pass = torch.sqrt(torch.clamp_min(
         (q * q).sum(-1)[:, None] + (s * s).sum(-1)[None, :]
         - 2.0 * (l2_ref.tf32_round(q) @ l2_ref.tf32_round(s).T), 0.0))
+    assert np.abs(one_pass.numpy() - plain).max() > 4 * limit
+
+
+def test_slab_split_tf32_within_the_chip_limit():
+    """8 slabs of the build's own-leaf sweep (200 local queries against a
+    256-row leaf slab, m = 256): the slab kernel's split products, summed
+    per 32-deep stage, are within ``slab_l2``'s card limit of the port's
+    plain version and of the JAX package's slab L2, where a one-pass TF32
+    product is not."""
+    series, queries = _series_and_queries(8 * 256, 8 * 200)
+    q = torch.from_numpy(queries).reshape(8, 200, 256)
+    s = torch.from_numpy(series).reshape(8, 256, 256)
+    got = l2_ref.slab_l2_split_tf32(q, s).numpy()
+    plain = l2_ref.slab_l2_matmul(q, s).numpy()
+    jax_ref = np.asarray(j_l2_ops.slab_l2(jnp.asarray(q.numpy()),
+                                          jnp.asarray(s.numpy()),
+                                          "pairwise"))
+    assert got.shape == (8, 200, 256)
+    limit = _limit("slab_l2", plain)
+    assert np.abs(got - plain).max() <= limit
+    assert np.abs(got - jax_ref).max() <= limit
+    one_pass = torch.sqrt(torch.clamp_min(
+        (q * q).sum(-1)[:, :, None] + (s * s).sum(-1)[:, None, :]
+        - 2.0 * (l2_ref.tf32_round(q)
+                 @ l2_ref.tf32_round(s).transpose(1, 2)), 0.0))
     assert np.abs(one_pass.numpy() - plain).max() > 4 * limit
 
 
@@ -271,9 +298,15 @@ def test_chip_smoke_tensor_core_bound():
     q1, w1 = torch.zeros((1, 256)), torch.zeros((4096, 256, 256))
     assert smoke._bound("fused_filter_mlp", (q1, w1))[1] == "bytes"
     assert smoke._bound("fused_filter_mlp", (q1, w1), 3)[1] == "bytes"
+    # the build's slab sweep: bound by its 172 MB on the split route
+    qs, ss = torch.zeros((256, 200, 256)), torch.zeros((256, 256, 256))
+    slab_bytes = 4 * 256 * (200 * 256 + 256 * 256 + 200 * 256)
+    assert smoke._bound("slab_l2", (qs, ss), 3) == (
+        slab_bytes / roofline.H100.hbm_bw * 1e3, "bytes")
+    assert smoke._bound("slab_l2", (qs, ss))[1] == "operations"
     assert {name for name, (_, passes) in smoke.DESIGN.items() if passes} \
-        == {"pairwise_l2", "fused_filter_mlp", "fused_filter_mlp_bf16",
-            "fused_filter_mlp_int8"}
+        == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
+            "fused_filter_mlp_bf16", "fused_filter_mlp_int8"}
     assert set(smoke.DESIGN) == set(smoke.KERNELS)
 
 
@@ -313,19 +346,50 @@ def test_chip_smoke_ptxas_report_rejects_spills_of_the_new_kernels(capsys):
     printed = capsys.readouterr().out
     assert f"filter_mlp: {new}: Used 168 registers" in printed
     assert "box_lb: already built" in printed
-    with pytest.raises(AssertionError, match="spills"):
-        smoke._ptxas_report({"l2_scan": report(
-            "_ZN12_GLOBAL__N_116l2_tf32x3_kernelEPKf", 16)})
+    for func in ("_ZN12_GLOBAL__N_116l2_tf32x3_kernelEPKf",
+                 "_ZN12_GLOBAL__N_118slab_tf32x3_kernelEPKf",
+                 "_ZN12_GLOBAL__N_113box_lb_kernelILi16ELb1EEEvPKf"):
+        with pytest.raises(AssertionError, match="spills"):
+            smoke._ptxas_report({"l2_scan": report(func, 16)})
 
 
 def test_chip_smoke_ragged_calls_reach_every_staging_path():
     """The untimed held calls cover what the main paths do not: both fused
     designs for every payload, partial query tiles, m % 4 != 0 and h not a
     multiple of a payload's 16-byte vector; pairwise_l2 with odd B and
-    m % 4 != 0.  Their split-TF32 emulation is within the card's limits."""
+    m % 4 != 0; slab_l2 at the iSAX build's last chunk (88 slabs), with Nq
+    off both tiles' query sides, R % 4 != 0, m % 4 != 0 and m below one
+    stage; box_lb at Q = 1 and 33 (both query paths), d = 5 .. 64, every
+    L % 4 and boxes with +-inf, empty and NaN sides.  The split-TF32
+    emulation is within the card's limits, and the box calls' plain version
+    is the JAX package's box bound."""
     smoke = _load_smoke()
     calls = smoke.ragged_calls(device="cpu")
-    assert set(calls) == {"pairwise_l2", *mlp_kernel.ENTRY.values()}
+    assert set(calls) == {"pairwise_l2", "slab_l2", "box_lb",
+                          *mlp_kernel.ENTRY.values()}
+    slabs = [tuple(q.shape) + (s.shape[1],) for q, s in calls["slab_l2"]]
+    assert (88, 200, 256, 256) in slabs
+    assert any(nq % 104 and nq % 128 and nq > 104 for _, nq, _, _ in slabs)
+    assert any(r % 4 for _, _, _, r in slabs)
+    assert any(m % 4 for _, _, m, _ in slabs)
+    assert any(m < 32 for _, _, m, _ in slabs)
+    for q, s in calls["slab_l2"]:
+        plain = l2_ref.slab_l2_matmul(q, s).numpy()
+        got = l2_ref.slab_l2_split_tf32(q, s).numpy()
+        assert np.abs(got - plain).max() <= _limit("slab_l2", plain)
+    boxes = [(q.shape[0], lo.shape[0], q.shape[1])
+             for q, lo, _ in calls["box_lb"]]
+    assert {1, 33} <= {Q for Q, _, _ in boxes}
+    assert {5, 8, 16, 64} <= {d for _, _, d in boxes}
+    assert {L % 4 for _, L, _ in boxes} == {0, 1, 2, 3}
+    for q, lo, hi in calls["box_lb"]:
+        assert np.isneginf(lo.numpy()).any() and np.isposinf(hi.numpy()).any()
+        assert np.isposinf(lo.numpy()).any() and np.isnan(hi.numpy()).any()
+        plain = box_ref.box_lb(q, lo, hi).numpy()
+        want = np.asarray(j_box_ops.box_lb(*(jnp.asarray(a.numpy())
+                                             for a in (q, lo, hi))))
+        assert np.isfinite(plain).all()
+        np.testing.assert_allclose(plain, want, rtol=1e-5, atol=1e-5)
     assert any(q.shape[1] % 4 and b.shape[0] % 2
                for q, b in calls["pairwise_l2"])
     assert any(q.shape[0] % 128 for q, _ in calls["pairwise_l2"])
