@@ -15,10 +15,14 @@
    batch; asserts that exact search equals a brute-force scan over the
    pairwise kernel for 64 queries, and that every kernel of the path was
    launched (the launch counters are zeroed just before the build and read
-   just after the last search).
-3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer, and
-   profiles it for the device's busy time and idle share; breaks the
-   build's training-data collection (``t_collect``) down by step.
+   just after the last search).  The cascade replay of every batch and of
+   the calibration runs as one launch of the replay kernel.
+3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
+   replay timed alone on the summaries the engine hands it), and profiles
+   it for the device's busy time, launches and idle share; breaks the
+   build's training-data collection (``t_collect``) down by step; profiles
+   50 steps of filter training (``training_profile``: wall and device-busy
+   time, launches and the top device operations per step).
 4. Single-query early-termination search (``search_early``, paper Alg. 2 as
    written) on the same DSTree index for 32 of its queries, k = 1 and 5,
    exact and at target 0.99: per-query wall time (median, p90), searched
@@ -28,12 +32,16 @@
 5. The grouped per-target search (``search_batched_grouped``) on the 256
    per-query-target queries, k = 1 and 5, beside the vectorised per-query
    batch: recall, pruning, the share of identical ids; asserts the
-   reference's serving tolerances between the two.
+   reference's serving tolerances between the two, and that the replay
+   kernel launched.
 6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
    own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
    index's shape (its F, Q = 256, m = h = 256): the per-filter
    ``filter_mlp`` kernel beside the fused kernel's three payloads, each
-   against its roofline bound; asserts that all four launched.
+   against its roofline bound; asserts that all four launched.  Then a
+   DSTree at 64 EAPCA segments (d = 128 box dimensions, beyond the box
+   kernel's register instances) on RandWalk 100,000 × 256: exact search
+   == brute force for 64 queries at k = 5.
 7. iSAX, end to end on the same collection: ``build_leafi(LeaFiConfig(
    backbone="isax", word_len=8, leaf_capacity=256,
    t_filter_over_t_series=20.0))`` with float32 filter weights, then
@@ -46,8 +54,10 @@
    too) beside the tuner's quality knots.  Then the same layer and
    collection breakdowns for iSAX.
 8. Holds each kernel against its plain PyTorch version on the card, on the
-   largest inputs the main paths gave it (and, for the fused filter
-   kernel and ``box_lb``, also on its smallest-Q call: ``search_early``'s
+   largest inputs the main paths gave it (the replay bitwise, its top-k and
+   its three counters, also on calibration's largest call; and, for the
+   fused filter kernel and ``box_lb``, also on its smallest-Q call:
+   ``search_early``'s
    single query, which takes the weight-streaming design and the
    few-query path; ``box_lb`` at every shape the paths gave it, with its
    launches per shape), and times kernel (through its
@@ -59,11 +69,14 @@
    and the function's one-pass TF32 bound.  Holds the redesigned kernels,
    untimed, also at ragged shapes (partial tiles, m % 4 != 0, h not a
    multiple of a 16-byte vector, R and L % 4 != 0, the iSAX build's last
-   slab chunk, box sides at +-inf, d = 5 .. 64, Q = 1 and 33), and
-   the fused entries on their largest call's weights at the Q on either
-   side of the stream design's limit, so every instance of both designs
-   is held.  The build's ``-Xptxas -v`` lines (registers, shared memory,
-   spills) are printed per kernel; the redesigned kernels must not spill.
+   slab chunk, box sides at +-inf, d = 5 .. 512, Q = 1 and 33; the replay
+   at k = 1, 5, 32, 33 and 257 with ties, +-inf and NaN, shuffled orders,
+   Q = 1 and rows apart), and the filter kernels on their largest call's
+   weights at the Q on either side of the stream design's limit, so every
+   instance of both designs is held; ``filter_mlp`` is timed beside the
+   fused float32 kernel at its own call.  The build's ``-Xptxas -v`` lines
+   (registers, shared memory, spills) are printed per kernel; the
+   redesigned kernels must not spill.
 9. Prints ``{"kernels": [...]}`` and, as the last line,
    ``{"ok": true, "device": {...}}``.  Any failure raises and exits
    non-zero before that line; so does a machine without a CUDA card.
@@ -115,6 +128,11 @@ KERNELS = {
     "filter_mlp": ("src/repro_torch/csrc/filter_mlp.cu",
                    "src/repro/kernels/filter_mlp/kernel.py:66",
                    (1e-4, 1e-5), "f32 sums over m and h in another order"),
+    "replay": ("src/repro_torch/csrc/replay.cu",
+               "no Pallas kernel: the reference's lax.scan replay, "
+               "src/repro/core/engine.py:307",
+               (0.0, 0.0), "comparisons and selection only: bitwise, the "
+               "top-k and all three counters"),
 }
 #: design of each kernel, and the tensor-core passes of the split-TF32 ones
 #: (products per float32 multiply-add; bf16/int8 weights are exact in TF32)
@@ -131,16 +149,26 @@ DESIGN = {
     "box_lb": ("f32 SIMT, 4 boxes a thread in registers, 16-byte stores, "
                "grid sized to the SMs; no query tile for a few queries",
                None),
-    "filter_mlp": ("f32 SIMT, 64-query tile", None),
+    "filter_mlp": ("the fused float32 kernel's designs with the raw "
+                   "epilogue: split-TF32 mma.sync 128-query tiles; f32 "
+                   "weight stream for a few queries", 3),
+    "replay": ("one warp a row, 4 x 32 positions a step with the next "
+               "step's order entries prefetched, lane-parallel pre-test "
+               "against the chunk's bsf, the candidates' slots preloaded "
+               "(kk <= 8) and walked one by one; top-k in registers for "
+               "k <= 32, in the output row beyond", None),
 }
 #: the redesigned kernels, whose ptxas report must show no spills
 SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
-                 "mlp_stream_kernel", "box_lb_kernel")
+                 "mlp_stream_kernel", "box_lb_kernel", "replay_kernel")
 #: the kernels each path launches
-DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb")
+DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb",
+                  "replay")
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
-                "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb")
+                "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb",
+                "replay")
 SEARCH_KERNELS = ("box_lb", "fused_filter_mlp")     # early and grouped
+GROUPED_KERNELS = SEARCH_KERNELS + ("replay",)
 SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
                  "fused_filter_mlp_int8")
 PAYLOADS = ("float32", "bfloat16", "int8")
@@ -162,7 +190,9 @@ def _counter_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
-    return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES)
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
+            replay_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -175,32 +205,57 @@ def _zero_counters() -> None:
             table[name] = 0
 
 
+def _call_size(name: str, args, out) -> int:
+    """A call's size: output elements; for the replay, rows x positions x
+    k (so a batch's k = 5 call outranks its k = 1 calls)."""
+    if name.startswith("replay"):
+        return args[2].numel() * args[5]
+    return out.numel()
+
+
 @contextlib.contextmanager
 def capture_largest_inputs(captured: dict):
     """Record, per kernel, the arguments of its largest call (by output
     elements) while the main path runs, and for the fused filter entries
     and ``box_lb`` also those of the call with the fewest queries (under
     ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
-    (count and last arguments, under ``box_lb@shapes``).  The wrappers
+    (count and last arguments, under ``box_lb@shapes``); for the replay
+    the largest call made by calibration apart (``replay@calibration``,
+    the calls inside ``conformal.simulate_search``).  The wrappers
     themselves, and their launch counts, are unchanged."""
+    from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    in_calibration = []
     targets = [(l2_kernel, "pairwise_l2_cuda", lambda a: "pairwise_l2"),
                (l2_kernel, "slab_l2_cuda", lambda a: "slab_l2"),
                (mlp_kernel, "fused_filter_mlp_cuda",
                 lambda a: mlp_kernel.ENTRY[a[1].dtype]),
                (mlp_kernel, "filter_mlp_cuda", lambda a: "filter_mlp"),
-               (box_kernel, "box_lb_cuda", lambda a: "box_lb")]
-    saved = []
+               (box_kernel, "box_lb_cuda", lambda a: "box_lb"),
+               (replay_kernel, "replay_cascade_cuda",
+                lambda a: "replay@calibration" if in_calibration
+                else "replay")]
+    saved = [(conformal, "simulate_search", conformal.simulate_search)]
+
+    def simulate_search(*args, _fn=conformal.simulate_search, **kw):
+        in_calibration.append(True)
+        try:
+            return _fn(*args, **kw)
+        finally:
+            in_calibration.pop()
+    conformal.simulate_search = simulate_search
     for mod, attr, naming in targets:
         fn = getattr(mod, attr)
 
         def wrapped(*args, _fn=fn, _naming=naming):
             out = _fn(*args)
             name = _naming(args)
-            if out.numel() > captured.get(name, (0, None))[0]:
-                captured[name] = (out.numel(), args)
+            size = _call_size(name, args, out)
+            if size > captured.get(name, (0, None))[0]:
+                captured[name] = (size, args)
             if name.startswith("fused_filter_mlp") or name == "box_lb":
                 n_q = args[0].shape[0]
                 if n_q < captured.get(f"{name}@min_q", (math.inf, None))[0]:
@@ -393,6 +448,49 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
             "queries": queries, "targets": targets}
 
 
+def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
+                    n_queries: int = 64, device: str = "cuda",
+                    captured: dict | None = None) -> dict:
+    """A DSTree build whose bounds are wider than the box kernel's register
+    instances: ``n_segments`` EAPCA segments, so d = 2 x ``n_segments``
+    (128) box dimensions, on RandWalk ``n`` x ``m`` (numpy seed 0);
+    ``n_queries`` queries exact and at 0.99, k = 5.  Asserts exact ==
+    brute force and (on the card) that the search kernels launched."""
+    import torch
+    from repro_torch.core import build
+    series = make_series(n, m)
+    cfg = build.LeaFiConfig(backbone="dstree", n_segments=n_segments,
+                            leaf_capacity=256, t_filter_over_t_series=20.0)
+    queries, _ = _query_setup(series, n_queries)
+    on_card = torch.device(device).type == "cuda"
+    captured = {} if captured is None else captured
+    _zero_counters()
+    with capture_largest_inputs(captured):
+        t0 = time.perf_counter()
+        lfi = build.build_leafi(series, cfg, device=device)
+        _sync(device)
+        _build_lines(f"dstree d={2 * n_segments} ", lfi,
+                     time.perf_counter() - t0, on_card)
+        results = {}
+        for name, target in (("exact", None), ("0.99", 0.99)):
+            _sync(device)
+            t0 = time.perf_counter()
+            r = lfi.search(queries, k=5, quality_target=target,
+                           device=device)
+            _sync(device)
+            results[name] = (r, time.perf_counter() - t0)
+    launches = _launch_counters()
+    for name, (r, wall) in results.items():
+        assert np.isfinite(r.dists).all(), f"non-finite dists {name}"
+        log(_search_line(f"dstree d={2 * n_segments} k=5 target={name:5s}",
+                         r, results["exact"][0], wall, n_queries))
+    _brute_force_check(lfi, queries, [results["exact"][0]], n_queries,
+                       f"dstree d={2 * n_segments} ")
+    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay"),
+                    f"DSTree d={2 * n_segments}", on_card)
+    return {"launches": launches}
+
+
 def _stack_results(rs, n_leaves: int):
     """One SearchResult from single-query ones, in order."""
     from repro_torch.core import search
@@ -505,7 +603,7 @@ def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
                                    atol=1e-6)
         assert np.abs(vec.searched - grp.searched).max() <= 2
         assert neq <= 0.02, f"{neq} of the ids differ beyond ties"
-    _check_launches(launches, SEARCH_KERNELS, "grouped", on_card)
+    _check_launches(launches, GROUPED_KERNELS, "grouped", on_card)
     return {"launches": launches, "results": results}
 
 
@@ -642,13 +740,16 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     offsets = lfi.tuner.offsets(target)
     d_F = search.predictions_for_all_leaves(idx, lfi.filter_params,
                                             lfi.leaf_ids, q, offsets)
-    # the replay alone over summaries of the engine's shapes: a fixed loop
-    # over all L visit positions, so its cost does not depend on the values
+    # the replay alone, on the summaries the engine hands it for this batch
     Q, L = d_lb.shape
-    kk = min(k, idx.max_leaf_size)
-    leaf_d = torch.sort(torch.rand((Q, L, kk), device=dev), dim=-1).values
-    leaf_i = torch.zeros((Q, L, kk), dtype=torch.int64, device=dev)
-    order = torch.argsort(d_lb, dim=1, stable=True)
+    replay_args = []
+    run_replay = engine.replay_cascade
+    engine.replay_cascade = lambda *a: replay_args.append(a) or run_replay(*a)
+    try:
+        engine.run_cascade(idx.series, idx.leaf_start, idx.leaf_size, q, d_lb,
+                           d_F, k=k, max_leaf=idx.max_leaf_size)
+    finally:
+        engine.replay_cascade = run_replay
     layers = {
         "search": lambda: lfi.search(queries, k=k, quality_target=target,
                                      device=dev),
@@ -658,8 +759,7 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
         "engine": lambda: engine.run_cascade(
             idx.series, idx.leaf_start, idx.leaf_size, q, d_lb, d_F, k=k,
             max_leaf=idx.max_leaf_size),
-        "replay": lambda: engine.replay_cascade(leaf_d, leaf_i, d_lb, d_F,
-                                                order, k),
+        "replay": lambda: engine.replay_cascade(*replay_args[0]),
     }
     times: dict = {name: [] for name in layers}
     for _ in range(reps):
@@ -794,6 +894,93 @@ def collect_breakdown(lfi, label: str = "") -> dict:
     return ms
 
 
+class _StopTraining(Exception):
+    """Ends ``training_profile``'s run after its measured window."""
+
+
+def training_profile(lfi, label: str = "", skip: int = 50,
+                     window: int = 50) -> dict:
+    """Where a filter-training step's time goes.  ``train_filters`` runs on
+    the built index's training data (``collect_training_data`` again, with
+    the build's seed, split and step count) and stops after ``skip`` + 2 x
+    ``window`` steps: steps ``skip`` .. ``skip + window`` are timed on the
+    host clock around a synchronize (the step's wall), the next ``window``
+    under ``torch.profiler`` (device-busy time, launches and the top device
+    operations per step).  The validation pass every ``n_steps // 20``
+    steps falls into each window about as often as in the build."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import filter_training
+
+    idx, cfg = lfi.index, lfi.config
+    dev = idx.device
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    data = filter_training.collect_training_data(
+        idx, lfi.leaf_ids, cfg.n_global, cfg.n_local, gen)
+    n_cal = len(lfi.calib.queries)                # build_leafi's split
+    data = dataclasses.replace(
+        data, global_queries=data.global_queries[:-n_cal],
+        global_d_L=data.global_d_L[:-n_cal],
+        global_d_lb=data.global_d_lb[:-n_cal])
+    cfg_train = dataclasses.replace(cfg.train, hidden=cfg.hidden)
+    n_steps = cfg.train.epochs * max(
+        (data.global_queries.shape[0] + data.local_queries.shape[1])
+        // cfg.train.batch, 1)
+    if n_steps <= skip + 2 * window:
+        raise ValueError(f"the build trains {n_steps} steps, fewer than the "
+                         f"profile's {skip + 2 * window + 1}")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks: dict = {}
+    step = [0]
+    loss_fn = filter_training._minibatch_loss
+
+    def counted_loss(*args, **kw):
+        i = step[0]
+        if i in (skip, skip + window, skip + 2 * window):
+            _sync(dev)
+            marks[i] = time.perf_counter()
+        if i == skip + window:
+            prof.start()
+        if i == skip + 2 * window:
+            prof.stop()
+            raise _StopTraining
+        step[0] += 1
+        return loss_fn(*args, **kw)
+
+    filter_training._minibatch_loss = counted_loss
+    try:
+        filter_training.train_filters(idx, data, cfg_train, gen)
+    except _StopTraining:
+        pass
+    finally:
+        filter_training._minibatch_loss = loss_fn
+    wall = (marks[skip + window] - marks[skip]) / window * 1e3
+    profiled_wall = (marks[skip + 2 * window]
+                     - marks[skip + window]) / window * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / window
+    by_name: dict = {}
+    for e in kernels:
+        short = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        by_name[short] = by_name.get(short, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / window
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"F": len(lfi.leaf_ids), "steps_in_build": n_steps,
+           "wall_ms_per_step": wall,
+           "profiled_wall_ms_per_step": profiled_wall,
+           "device_busy_ms_per_step": busy if kernels else None,
+           "idle_share": 1 - busy / wall if kernels else None,
+           "launches_per_step": len(kernels) / window,
+           "top_ms_per_step": dict(top)}
+    log(f"{label}training profile (F={out['F']}, steps {skip}..{skip + window}"
+        f" timed, {skip + window}..{skip + 2 * window} profiled, of the "
+        f"build's {n_steps}): " + json.dumps(out))
+    return out
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     import torch
     fn()
@@ -860,6 +1047,8 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         L = lo.shape[0]
         flops = Q * L * (6 * d + 1)      # 2 sub, 2 max, mul, add; sqrt
         nbytes = 4 * (Q * d + 2 * L * d + Q * L)
+    elif name == "replay":
+        return _replay_bound(args)
     elif name == "filter_mlp":           # raw z
         q, w1 = args[0], args[1]
         Q = q.shape[0]
@@ -881,6 +1070,20 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _replay_bound(args) -> tuple:
+    """The replay's bytes bound (its operations are comparisons, well
+    under the bytes' time): every position's order entry, d_lb and d_F
+    (8 + 4 + 4 bytes), the kk values of each position this run's data
+    searches, and the outputs; the searched count is the replay's own."""
+    from repro_torch.analysis import roofline
+    from repro_torch.core import engine
+    leaf_d, k = args[0], args[5]
+    Q, L, kk = leaf_d.shape
+    n_searched = int(engine.replay_cascade(*args)[2].sum())
+    nbytes = 16 * Q * L + 4 * kk * n_searched + Q * (12 * k + 12)
+    return nbytes / roofline.H100.hbm_bw * 1e3, "bytes"
+
+
 def _plain_mlp(q, w1, b1, w2, b2, ym, ys, off, s1=None, s2=None):
     from repro_torch.kernels.filter_mlp import ref as mlp_ref
     return mlp_ref.filter_predict_destd(w1, b1, w2, b2, ym, ys, q, off, s1,
@@ -900,6 +1103,8 @@ def _kernel_tables():
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.l2_scan import ref as l2_ref
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    from repro_torch.kernels.replay import ref as replay_ref
 
     mlp = mlp_kernel.fused_filter_mlp_cuda
     kernel_fn = {"pairwise_l2": l2_kernel.pairwise_l2_cuda,
@@ -907,22 +1112,53 @@ def _kernel_tables():
                  "fused_filter_mlp": mlp, "fused_filter_mlp_bf16": mlp,
                  "fused_filter_mlp_int8": mlp,
                  "box_lb": box_kernel.box_lb_cuda,
-                 "filter_mlp": mlp_kernel.filter_mlp_cuda}
+                 "filter_mlp": mlp_kernel.filter_mlp_cuda,
+                 "replay": replay_kernel.replay_cascade_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
                 "fused_filter_mlp_bf16": _plain_mlp,
                 "fused_filter_mlp_int8": _plain_mlp,
                 "box_lb": box_ref.box_lb,
-                "filter_mlp": _plain_raw_mlp}
+                "filter_mlp": _plain_raw_mlp,
+                "replay": replay_ref.replay_cascade}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
+
+
+def _bitwise_equal(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _hold_replay(args, label: str) -> dict:
+    """One replay call, its five outputs each asserted bitwise equal to
+    the plain loop's."""
+    import torch
+    kernel_fn, plain_fn, _ = _kernel_tables()
+    got = kernel_fn["replay"](*args)
+    torch.cuda.synchronize()
+    want = plain_fn["replay"](*args)
+    torch.cuda.synchronize()
+    same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
+    shapes = (" x ".join(str(tuple(a.shape)) for a in args[:2])
+              + f", k={args[5]}")
+    log(f"kernel {label} at {shapes}: bitwise equal per output {same} "
+        f"(tolerance 0: {KERNELS['replay'][3]})")
+    assert len(got) == len(want) and all(same), f"{label} disagrees"
+    return {"shapes": shapes, "max_abs_err": 0.0, "tolerance": 0.0}
 
 
 def _hold(name: str, args, label: str) -> dict:
     """One kernel call against its plain version, asserted within the
     kernel's limit."""
     import torch
+    if name == "replay":
+        return _hold_replay(args, label)
     _, _, (atol, rtol), why = KERNELS[name]
     kernel_fn, plain_fn, _ = _kernel_tables()
     got = kernel_fn[name](*args)
@@ -948,7 +1184,7 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     import torch
     held = _hold(name, args, label)
     kernel_fn, plain_fn, library_fn = _kernel_tables()
-    if name != "box_lb" and label == name:  # its plain version has no matmul
+    if name not in ("box_lb", "replay") and label == name:  # no matmul
         # what the same check reads for a TF32 run of the plain version
         want = plain_fn[name](*args)
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -962,7 +1198,9 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
             f"{'rejects' if tf32_err > held['tolerance'] else 'would accept'}")
     ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
     graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
-    plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a))
+    # the plain replay is a host loop of ~20 launches a position
+    plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a),
+                        reps=2 if name == "replay" else 20)
     lib = library_fn.get(name)
     library_ms = (None if lib is None
                   else _time_ms(lambda f=lib, a=args: f(*a)))
@@ -996,10 +1234,52 @@ RAGGED_L2 = ((130, 1001, 33), (7, 129, 256))
 RAGGED_SLAB = ((88, 200, 256, 256), (3, 130, 97, 256), (2, 50, 64, 33),
                (4, 9, 300, 12))
 #: (Q, L, d) of box_lb's: the few-query path (Q = 1) and the staged one
-#: (Q = 33), d = 5 and 64 (the generic path), 8 and 16 (registers), every
+#: (Q = 33), d = 5, 64, 65, 128 and 512 (the generic path; 128 a DSTree at
+#: 64 segments, 512 one at m = 256 segments), 8 and 16 (registers), every
 #: L % 4 (rows off 16 bytes); the boxes carry +-inf sides
 RAGGED_BOX = ((1, 4093, 16), (33, 1001, 8), (33, 130, 5), (7, 517, 64),
-              (4, 4096, 16), (40, 7479, 8))
+              (4, 4096, 16), (40, 7479, 8), (33, 1001, 65), (2, 390, 128),
+              (64, 777, 128), (9, 4095, 512))
+#: (Q, L, kk, k, order) of the replay's: k = 1, 5, 32 (the last in
+#: registers), 33 and 257 (in the output row; 257 shifts it 32 at a time
+#: over 8 pieces), kk above 32 (two slot loads) and below k, Q = 1, L off
+#: the 128-position step; the order "sorted" (a stable argsort of d_lb,
+#: as the callers pass) or "shuffled"; values drawn from a few levels (so
+#: ties everywhere) with +-inf and NaN among the bounds, the predictions
+#: and the leaf values, leaves sorted and unsorted, and one call's rows
+#: apart in a larger buffer (as the engine passes them)
+RAGGED_REPLAY = ((1, 4093, 5, 5, "sorted"), (37, 1000, 1, 1, "shuffled"),
+                 (37, 700, 5, 32, "sorted"), (20, 600, 40, 33, "shuffled"),
+                 (9, 500, 7, 257, "sorted"), (64, 129, 3, 5, "shuffled"))
+
+
+def replay_calls(device: str = "cuda") -> list:
+    """The replay's held calls (numpy seed 2), at ``RAGGED_REPLAY``."""
+    import torch
+    rng = np.random.default_rng(2)
+    levels = np.float32([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0])
+    calls = []
+    for n, (Q, L, kk, k, how) in enumerate(RAGGED_REPLAY):
+        leaf_d = rng.choice(levels, (Q, L + 1, kk))
+        if n % 2 == 0:
+            leaf_d = np.sort(leaf_d, axis=-1)
+        d_lb = rng.choice(levels, (Q, L)) * 0.8
+        d_F = rng.choice(levels, (Q, L)) * 0.9
+        for a in (leaf_d, d_lb, d_F):
+            for v in (np.inf, np.nan, -np.inf):
+                a[rng.random(a.shape) < 0.02] = v
+        leaf_i = rng.integers(0, 1 << 40, (Q, L + 1, kk))
+        order = (np.argsort(d_lb, axis=1, kind="stable") if how == "sorted"
+                 else np.stack([rng.permutation(L) for _ in range(Q)]))
+        t = {name: torch.as_tensor(np.ascontiguousarray(a), device=device)
+             for name, a in (("leaf_d", leaf_d.astype(np.float32)),
+                             ("leaf_i", leaf_i), ("d_lb", d_lb),
+                             ("d_F", d_F), ("order", order))}
+        ld, li = t["leaf_d"][:, :L], t["leaf_i"][:, :L]
+        if n < len(RAGGED_REPLAY) - 1:      # the last call's rows lie apart
+            ld, li = ld.contiguous(), li.contiguous()
+        calls.append((ld, li, t["d_lb"], t["d_F"], t["order"], k))
+    return calls
 
 
 def _box_args(rng, Q: int, L: int, d: int, device: str) -> tuple:
@@ -1077,15 +1357,31 @@ def _box_shapes(captured: dict, power: str) -> list:
     return rows
 
 
+def _fused_beside_raw(args, power: str) -> dict:
+    """The fused float32 kernel at ``filter_mlp``'s call (zero means and
+    offsets, unit spreads): the same body, timed in the same run."""
+    import torch
+    q, w1, b1, w2, b2 = args
+    F = w1.shape[0]
+    zeros = torch.zeros(F, device=w1.device)
+    res = _check_call("fused_filter_mlp",
+                      (q, w1, b1, w2, b2, zeros, zeros + 1, zeros),
+                      "fused_filter_mlp at filter_mlp's call", power)
+    return {k: res[k] for k in ("ms", "graph_ms", "max_abs_err")}
+
+
 def check_kernels(captured: dict, launches: dict, power: str) -> list:
     """Each kernel against its plain version on the main paths' inputs; the
     fused entries and ``box_lb`` also on their call with the fewest queries
     (``box_lb`` at every shape the paths gave it, with its launches there),
-    the fused entries on their largest call's weights at the Q on either
-    side of the stream design's limit; the redesigned kernels also at
-    ragged shapes (untimed)."""
+    the filter kernels on their largest call's weights at the Q on either
+    side of the stream design's limit, ``filter_mlp`` beside the fused
+    float32 kernel at its own call, the replay also on calibration's
+    largest call; the redesigned kernels also at ragged shapes
+    (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
-    ragged = ragged_calls()
+    ragged = {**ragged_calls(), "replay": replay_calls()}
+    ragged["filter_mlp"] = [c[:5] for c in ragged["fused_filter_mlp"]]
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():
         if name not in captured:
@@ -1108,10 +1404,23 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
             row["smallest_q_call"] = {
                 "Q": n_q, **design,
                 **_check_call(name, small, _q_label(name, n_q), power)}
-        if name in mlp_kernel.LAUNCHES and "smallest_q_call" in row:
+        if name in mlp_kernel.LAUNCHES:
             limit = mlp_kernel.STREAM_MAX_Q
             held += [(args[0][:n].contiguous(),) + tuple(args[1:])
                      for n in (1, limit, limit + 1)]
+        if name == "filter_mlp":
+            fused = _fused_beside_raw(args, power)
+            row["fused_f32_same_call"] = fused
+            log(f"kernel filter_mlp: {res['ms'] / fused['ms']:.3f} x the "
+                "fused float32 kernel's time at the same call (graph: "
+                f"{res['graph_ms'] / fused['graph_ms']:.3f} x), "
+                f"{res['ms'] / res['plain_ms']:.3f} x its plain version's")
+        if name == "replay" and "replay@calibration" in captured:
+            cal = captured["replay@calibration"][1]
+            row["calibration_call"] = {
+                "rows": cal[2].shape[0], "L": cal[2].shape[1],
+                **_check_call(name, cal, "replay (calibration's largest "
+                              "call)", power)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
         if held:
@@ -1161,7 +1470,7 @@ def main() -> int:
     log(card)
     power = card.split(",")[-1].strip()
     t0 = time.perf_counter()
-    logs = common.build(["l2_scan", "filter_mlp", "box_lb"])
+    logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
 
@@ -1180,6 +1489,8 @@ def main() -> int:
     phase("dstree breakdown", search_breakdown, e2e["lfi"], e2e["queries"])
     phase("dstree collect breakdown", collect_breakdown, e2e["lfi"],
           "dstree ")
+    phase("dstree training profile", training_profile, e2e["lfi"],
+          "dstree ")
     paths = [e2e["launches"]]
     paths.append(phase("search_early", run_early, e2e["lfi"],
                        e2e["queries"], e2e["results"], device="cuda",
@@ -1191,6 +1502,8 @@ def main() -> int:
     del e2e                               # the DSTree index leaves the card
     paths.append(phase("filter suite", run_filter_suite, n_filters,
                        device="cuda", captured=captured)["launches"])
+    paths.append(phase("dstree d=128", run_wide_dstree, device="cuda",
+                       captured=captured)["launches"])
     isax = phase("isax", run_isax, device="cuda", captured=captured,
                  series=series)
     phase("isax breakdown", search_breakdown, isax["lfi"], isax["queries"],

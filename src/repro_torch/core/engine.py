@@ -16,11 +16,15 @@ Two strategies over identical semantics, as in the reference:
   float tolerance.
 
 The cascade is a ``lax.scan`` over the L visit positions in the reference.
-Here it is a Python loop over positions, vectorised over queries: a dozen
-small launches per position, which at L ≈ 4k leaves is the host-side cost
-PERF.md names first.  The probe's leaf-0 values are written verbatim into
-the replay's summaries, so the replay's bsf after its first merge equals
-``bsf0`` bitwise, which is what makes the survivor mask a true superset.
+Here :func:`replay_cascade` runs it on the card as one launch of the
+hand-written replay kernel (``kernels/replay``, one warp walks one row),
+and on the CPU as that kernel's plain version, a Python loop over the
+positions vectorised over the rows; the two agree bitwise.  The probe's
+leaf-0 values are written verbatim into the replay's summaries, so the
+replay's bsf after its first merge equals ``bsf0`` bitwise, which is what
+makes the survivor mask a true superset.  ``strategy="scan"`` keeps its
+own loop over the positions (it scores every leaf; the oracle, not the
+main path).
 
 ``nn_distance_all_leaves`` / ``nn_distance_own_leaf`` are the build's
 training-target sweeps over padded leaf slabs, through the pairwise and slab
@@ -31,17 +35,23 @@ wider chunk means fewer, fuller launches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..kernels.common import on_cpu
 from ..kernels.l2_scan import ops as l2_ops
+from ..kernels.replay import kernel as replay_kernel
+from ..kernels.replay import ref as replay_ref
 
 _INF = float("inf")
 
-# gathered candidate working set per chunk (bytes of f32 rows)
+# gathered working set per chunk (bytes of f32 rows); on the card the
+# compact candidate pass takes 1 GiB: its chunk loop, a dozen launches a
+# chunk, made most of a batch's launches at 256 MiB
 _CHUNK_BYTES = 256 << 20
+_CARD_CANDIDATE_CHUNK_BYTES = 1 << 30
 
 
 @dataclasses.dataclass
@@ -58,25 +68,12 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _pow2_chunk(per_leaf_bytes: int, cap: int) -> int:
+def _pow2_chunk(per_leaf_bytes: int, cap: int,
+                budget: int = _CHUNK_BYTES) -> int:
     """Power-of-two chunk keeping ``chunk · per_leaf_bytes`` near
-    ``_CHUNK_BYTES`` (capped at ``cap``)."""
-    chunk = max(_CHUNK_BYTES // max(per_leaf_bytes, 1), 1)
+    ``budget`` (capped at ``cap``)."""
+    chunk = max(budget // max(per_leaf_bytes, 1), 1)
     return min(1 << (int(chunk).bit_length() - 1), cap)
-
-
-def _merge_topk(topk_d, topk_i, vals, ids, k):
-    """k smallest of (running top-k ∪ new candidates), ties toward the
-    running top-k and then the lower position (``lax.top_k``'s order)."""
-    alld = torch.cat([topk_d, vals], dim=1)
-    alli = torch.cat([topk_i, ids], dim=1)
-    srt, arg = torch.sort(alld, dim=1, stable=True)
-    return srt[:, :k], torch.gather(alli, 1, arg[:, :k])
-
-
-def _init_topk(Q: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.full((Q, k), _INF, device=device),
-            torch.full((Q, k), -1, dtype=torch.int64, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +89,7 @@ def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
     lb_ord = torch.gather(d_lb, 1, order)
     dF_ord = torch.gather(d_F, 1, order)
     row_ids = torch.arange(max_leaf, device=dev)
-    topk_d, topk_i = _init_topk(Q, k, dev)
+    topk_d, topk_i = replay_ref.init_topk(Q, k, dev)
     plb_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     pf_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     for p in range(L):
@@ -106,17 +103,10 @@ def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
                                     "direct")[:, 0]              # (Q, R)
         keep = (row_ids < leaf_size[leaf][:, None]) & ~pruned[:, None]
         d = torch.where(keep, d, _INF)
-        topk_d, topk_i = _merge_topk(topk_d, topk_i, d, rows, k)
+        topk_d, topk_i = replay_ref.merge_topk(topk_d, topk_i, d, rows, k)
         plb_hist[p] = p_lb
         pf_hist[p] = p_f
-    return _counted(topk_d, topk_i, plb_hist, pf_hist)
-
-
-def _counted(topk_d, topk_i, plb_hist, pf_hist):
-    n_plb = plb_hist.sum(dim=0, dtype=torch.int32)
-    n_pf = pf_hist.sum(dim=0, dtype=torch.int32)
-    n_s = plb_hist.shape[0] - n_plb - n_pf          # the two are disjoint
-    return topk_d, topk_i, n_s, n_plb, n_pf
+    return replay_ref.counted(topk_d, topk_i, plb_hist, pf_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -179,27 +169,15 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     n_searched, n_pruned_lb, n_pruned_filter).  The one copy of the
     cascade's decision logic: compact search runs it over gathered
     candidate summaries, calibration (``conformal.simulate_search``) with
-    k=1 over the precollected d_L matrices.
+    k=1 over the precollected d_L matrices.  CUDA tensors go to the replay
+    kernel in one launch; CPU tensors to its plain version
+    (``kernels/replay/ref.py``), which it equals bitwise.
     """
-    Q, L, kk = leaf_d.shape
-    dev = leaf_d.device
-    lb_ord = torch.gather(d_lb, 1, order)
-    dF_ord = torch.gather(d_F, 1, order)
-    idx = order[:, :, None].expand(Q, L, kk)
-    ld_ord = torch.gather(leaf_d, 1, idx)
-    li_ord = torch.gather(leaf_i, 1, idx)
-    topk_d, topk_i = _init_topk(Q, k, dev)
-    plb_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
-    pf_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
-    for p in range(L):
-        bsf = topk_d[:, -1]
-        p_lb = lb_ord[:, p] > bsf
-        p_f = ~p_lb & (dF_ord[:, p] > bsf)
-        vals = torch.where((p_lb | p_f)[:, None], _INF, ld_ord[:, p])
-        topk_d, topk_i = _merge_topk(topk_d, topk_i, vals, li_ord[:, p], k)
-        plb_hist[p] = p_lb
-        pf_hist[p] = p_f
-    return _counted(topk_d, topk_i, plb_hist, pf_hist)
+    if on_cpu(leaf_d, leaf_i, d_lb, d_F, order):
+        return replay_ref.replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k)
+    return replay_kernel.replay_cascade_cuda(
+        leaf_d, leaf_i, d_lb.contiguous(), d_F.contiguous(),
+        order.contiguous(), k)
 
 
 def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
@@ -209,6 +187,8 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
     dev = queries.device
     kk = min(k, max_leaf)
     order = torch.argsort(d_lb, dim=1, stable=True)              # (Q, L)
+    budget = (_CARD_CANDIDATE_CHUNK_BYTES if dev.type == "cuda"
+              else _CHUNK_BYTES)
 
     # -- phase 1: probe the best-lb leaf, mask survivors --------------------
     probe_impl = "matmul" if dist_impl == "pairwise" else dist_impl
@@ -253,14 +233,15 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
                 continue
             computed[qis] = uni.size
             chunk = _pow2_chunk((max_leaf * m + Qb * max_leaf) * 4,
-                                _next_pow2(uni.size))
+                                _next_pow2(uni.size), budget)
             leaf_u = torch.as_tensor(uni, device=dev)
             vals, ids = _union_leaf_topk(series, leaf_start, leaf_size,
                                          queries[qidx], leaf_u, kk, max_leaf,
                                          chunk)
             leaf_sc = leaf_u[None, :].expand(Qb, -1)
         else:
-            chunk = _pow2_chunk(Qb * max_leaf * m * 4, _next_pow2(C))
+            chunk = _pow2_chunk(Qb * max_leaf * m * 4, _next_pow2(C),
+                                budget)
             vals, ids = _bucket_leaf_topk(series, leaf_start, leaf_size,
                                           queries[qidx], leaf, kk, max_leaf,
                                           chunk, dist_impl)

@@ -33,6 +33,7 @@ from . import bounds as bounds_mod
 from . import conformal, engine, filters
 from .flat_index import FlatIndex
 from ..kernels.common import Device, resolve_device
+from ..kernels.replay import ref as replay_ref
 
 _INF = float("inf")
 
@@ -304,7 +305,7 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
         d = dists.pop(p)
         if d.min() < bsf:
             start = int(starts[order[p]])
-            topk_d, topk_i = engine._merge_topk(
+            topk_d, topk_i = replay_ref.merge_topk(
                 topk_d, topk_i, torch.from_numpy(d)[None],
                 torch.arange(start, start + R)[None], k)
             bsf = topk_d[0, -1].numpy()

@@ -11,7 +11,9 @@
 // * filter_mlp_kernel (body _mlp_kernel), the per-filter sweep that the
 //   filter-inference benchmark measures the fused kernel against: the raw z
 //   alone, float32 weights only, no statistics and no offsets.  C entry
-//   filter_mlp.
+//   filter_mlp: the fused float32 entry's two designs below, with the raw
+//   epilogue (z = relu(q . w1 + b1) . w2 + b2) chosen by their RAW template
+//   parameter.
 //
 // Every sum is float32 (the conformal offsets are calibrated on these
 // values and the prune decisions compare them with lower bounds).  int8
@@ -62,14 +64,10 @@
 //   float32 FMAs; the slices are summed through warp shuffles and shared
 //   memory, then the same epilogue.
 //
-// filter_mlp keeps the first port's plain loop on the CUDA cores
-// (mlp_kernel, float32 weights, raw z; it was the fused entries' loop
-// too before their tile design): a block per (filter, 64-query tile),
-// 64-lane hidden chunks, a register-tiled product over m in 16-deep synchronous
-// shared-memory stages (4 x 4 outputs per thread), the chunk's b1/relu/w2
-// in registers and a warp-shuffle reduction; it is the next kernel to take
-// the tile design.  Ragged F, Q, m and h are zero-filled or masked in every
-// kernel, so nothing is padded.
+// filter_mlp takes the float32 instances of both designs by the same Q
+// limit, three tensor-core passes in the tile design; only the epilogue
+// differs (RAW: + b2, no statistics, no offsets).  Ragged F, Q, m and h are
+// zero-filled or masked in every kernel, so nothing is padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,96 +87,20 @@ __device__ __forceinline__ float upcast(int8_t w) {
   return static_cast<float>(w);
 }
 
-constexpr int BQ = 64;   // queries per block
-constexpr int HC = 64;   // hidden lanes per chunk
-constexpr int BK = 16;   // depth of one shared-memory stage over m
-constexpr int THREADS = 256;
-
-// filter_mlp: out[f][q] = relu(q . w1[f] + b1[f]) . w2[f] + b2[f], float32
-__global__ void __launch_bounds__(THREADS)
-mlp_kernel(const float* __restrict__ q, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ out, int Q,
-           int m, int h, int q_tiles) {
-  const int f = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BQ;
-  const float* W1 = w1 + (long long)f * m * h;
-  const float* B1 = b1 + (long long)f * h;
-  const float* W2 = w2 + (long long)f * h;
-
-  __shared__ float As[BK][BQ + 4];   // query tile, transposed: As[k][query]
-  __shared__ float Ws[BK][HC + 4];   // w1 tile: Ws[k][lane]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;           // hidden lanes tx*4 .. tx*4+3 of a chunk
-  const int ty = tid / 16;           // queries      ty*4 .. ty*4+3
-
-  float z[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int h0 = 0; h0 < h; h0 += HC) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < m; k0 += BK) {
-#pragma unroll
-      for (int e = tid; e < BQ * BK; e += THREADS) {
-        const int r = e / BK, kk = e % BK;
-        const int gq = q0 + r, gk = k0 + kk;
-        As[kk][r] = (gq < Q && gk < m) ? q[(long long)gq * m + gk] : 0.f;
-      }
-#pragma unroll
-      for (int e = tid; e < BK * HC; e += THREADS) {
-        const int kk = e / HC, c = e % HC;
-        const int gk = k0 + kk, gl = h0 + c;
-        Ws[kk][c] = (gk < m && gl < h) ? W1[(long long)gk * h + gl] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lane = h0 + tx * 4 + j;
-      if (lane >= h) continue;
-      const float bj = B1[lane];
-      const float wj = W2[lane];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) z[i] = fmaf(fmaxf(acc[i][j] + bj, 0.f), wj, z[i]);
-    }
-  }
-
-  // the 16 threads of one query row are 16 consecutive lanes of a warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) z[i] += __shfl_xor_sync(0xffffffffu, z[i], o);
-
-  if (tx == 0) {
-    const float bias = b2[f];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      if (r < Q) out[(long long)f * Q + r] = z[i] + bias;
-    }
-  }
+// a query's summed z: raw (filter_mlp) or de-standardised minus the offset
+template <bool RAW>
+__device__ __forceinline__ float epilogue(float z, int f,
+                                          const float* __restrict__ b2,
+                                          const float* __restrict__ ym,
+                                          const float* __restrict__ ys,
+                                          const float* __restrict__ off) {
+  if constexpr (RAW)
+    return z + b2[f];
+  else
+    return (z + b2[f]) * ys[f] + ym[f] - off[f];
 }
 
-// ---- fused entries, tile design: split-TF32 tensor cores ----------------
+// ---- tile design: split-TF32 tensor cores --------------------------------
 
 constexpr int M_WARPS_M = 2;            // warps along the queries
 constexpr int M_WARPS_N = 4;            // warps along the hidden lanes
@@ -201,7 +123,8 @@ struct TileShape {
   static constexpr int SMEM = M_STAGES * STAGE_BYTES;  // 105 / 81 / 69 KB
 };
 
-template <typename T>
+// RAW: the raw z + b2 (filter_mlp); else (z + b2) * y_std + y_mean - offset
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(M_THREADS, 1)
 mlp_tile_kernel(const float* __restrict__ q, const T* __restrict__ w1,
                 const float* __restrict__ s1, const float* __restrict__ b1,
@@ -349,11 +272,11 @@ mlp_tile_kernel(const float* __restrict__ q, const T* __restrict__ w1,
     float zq = 0.f;
 #pragma unroll
     for (int w = 0; w < M_WARPS_N; ++w) zq += red[w][tid];
-    out[(long long)f * Q + q0 + tid] = (zq + b2[f]) * ys[f] + ym[f] - off[f];
+    out[(long long)f * Q + q0 + tid] = epilogue<RAW>(zq, f, b2, ym, ys, off);
   }
 }
 
-// ---- fused entries, stream design: few queries, w1 streamed once --------
+// ---- stream design: few queries, w1 streamed once ------------------------
 
 constexpr int SQ = 4;                   // queries per pass over w1[f]
 constexpr int S_THREADS = 256;
@@ -376,7 +299,7 @@ __device__ __forceinline__ void load_column(const T* p, int valid, bool vec,
 
 // cw = 2^cw_log2 16-byte columns per pass (cw * V <= 256 hidden lanes), so
 // S_THREADS / cw row slices; vec: h * sizeof(T) % 16 == 0, w1 16-byte aligned
-template <typename T>
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(S_THREADS)
 mlp_stream_kernel(const float* __restrict__ q, const T* __restrict__ w1,
                   const float* __restrict__ s1, const float* __restrict__ b1,
@@ -478,7 +401,7 @@ mlp_stream_kernel(const float* __restrict__ q, const T* __restrict__ w1,
     if (tid < SQ && q0 + tid < Q) {
       float zq = 0.f;
       for (int w = 0; w < S_WARPS; ++w) zq += red[w * SQ + tid];
-      out[(long long)f * Q + q0 + tid] = (zq + b2[f]) * ys[f] + ym[f] - off[f];
+      out[(long long)f * Q + q0 + tid] = epilogue<RAW>(zq, f, b2, ym, ys, off);
     }
   }
 }
@@ -491,7 +414,7 @@ mlp_stream_kernel(const float* __restrict__ q, const T* __restrict__ w1,
 #endif
 constexpr int kStreamMaxQ = FILTER_MLP_STREAM_MAX_Q;
 
-template <typename T>
+template <typename T, bool RAW>
 int launch_fused(const void* queries, const void* w1, const void* s1,
                  const void* b1, const void* w2, const void* s2,
                  const void* b2, const void* y_mean, const void* y_std,
@@ -519,11 +442,11 @@ int launch_fused(const void* queries, const void* w1, const void* s1,
       ++cw_log2;
     const int vec = h % V == 0 && tf32x3::aligned16(w1);
     const int smem = SQ * m * static_cast<int>(sizeof(float));
-    err = cudaFuncSetAttribute(mlp_stream_kernel<T>,
+    err = cudaFuncSetAttribute(mlp_stream_kernel<T, RAW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
-    mlp_stream_kernel<T><<<F, S_THREADS, smem, st>>>(
+    mlp_stream_kernel<T, RAW><<<F, S_THREADS, smem, st>>>(
         qp, w1p, s1p, b1p, w2p, s2p, b2p, ymp, ysp, offp, outp, Q, m, h,
         cw_log2, vec);
   } else {
@@ -532,30 +455,15 @@ int launch_fused(const void* queries, const void* w1, const void* s1,
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     const int vec = m % 4 == 0 && h % V == 0 && tf32x3::aligned16(queries) &&
                     tf32x3::aligned16(w1);
-    err = cudaFuncSetAttribute(mlp_tile_kernel<T>,
+    err = cudaFuncSetAttribute(mlp_tile_kernel<T, RAW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TileShape<T>::SMEM);
     if (err != cudaSuccess) return err;
-    mlp_tile_kernel<T><<<(unsigned)blocks, M_THREADS, TileShape<T>::SMEM,
-                         st>>>(qp, w1p, s1p, b1p, w2p, s2p, b2p, ymp, ysp,
-                               offp, outp, Q, m, h, q_tiles, vec);
+    mlp_tile_kernel<T, RAW><<<(unsigned)blocks, M_THREADS,
+                              TileShape<T>::SMEM, st>>>(
+        qp, w1p, s1p, b1p, w2p, s2p, b2p, ymp, ysp, offp, outp, Q, m, h,
+        q_tiles, vec);
   }
-  return cudaGetLastError();
-}
-
-int launch_raw(const void* queries, const void* w1, const void* b1,
-               const void* w2, const void* b2, void* out, int F, int Q, int m,
-               int h, void* stream) {
-  if (F <= 0 || Q <= 0) return cudaGetLastError();
-  const int q_tiles = (Q + BQ - 1) / BQ;
-  const long long blocks = (long long)F * q_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  mlp_kernel<<<(unsigned)blocks, THREADS, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), Q, m, h,
-      q_tiles);
   return cudaGetLastError();
 }
 
@@ -569,8 +477,9 @@ extern "C" int fused_filter_mlp(const void* queries, const void* w1,
                                 const void* y_mean, const void* y_std,
                                 const void* offsets, void* out, int F, int Q,
                                 int m, int h, void* stream) {
-  return launch_fused<float>(queries, w1, nullptr, b1, w2, nullptr, b2,
-                             y_mean, y_std, offsets, out, F, Q, m, h, stream);
+  return launch_fused<float, false>(queries, w1, nullptr, b1, w2, nullptr,
+                                    b2, y_mean, y_std, offsets, out, F, Q, m,
+                                    h, stream);
 }
 
 extern "C" int fused_filter_mlp_bf16(const void* queries, const void* w1,
@@ -579,9 +488,9 @@ extern "C" int fused_filter_mlp_bf16(const void* queries, const void* w1,
                                      const void* y_std, const void* offsets,
                                      void* out, int F, int Q, int m, int h,
                                      void* stream) {
-  return launch_fused<__nv_bfloat16>(queries, w1, nullptr, b1, w2, nullptr,
-                                     b2, y_mean, y_std, offsets, out, F, Q,
-                                     m, h, stream);
+  return launch_fused<__nv_bfloat16, false>(queries, w1, nullptr, b1, w2,
+                                            nullptr, b2, y_mean, y_std,
+                                            offsets, out, F, Q, m, h, stream);
 }
 
 extern "C" int fused_filter_mlp_int8(const void* queries, const void* w1,
@@ -591,8 +500,8 @@ extern "C" int fused_filter_mlp_int8(const void* queries, const void* w1,
                                      const void* y_std, const void* offsets,
                                      void* out, int F, int Q, int m, int h,
                                      void* stream) {
-  return launch_fused<int8_t>(queries, w1, s1, b1, w2, s2, b2, y_mean,
-                              y_std, offsets, out, F, Q, m, h, stream);
+  return launch_fused<int8_t, false>(queries, w1, s1, b1, w2, s2, b2, y_mean,
+                                     y_std, offsets, out, F, Q, m, h, stream);
 }
 
 // queries (Q, m); w1 (F, m, h); b1, w2 (F, h); b2 (F,) -> out (F, Q), the raw
@@ -600,6 +509,8 @@ extern "C" int fused_filter_mlp_int8(const void* queries, const void* w1,
 extern "C" int filter_mlp(const void* queries, const void* w1, const void* b1,
                           const void* w2, const void* b2, void* out, int F,
                           int Q, int m, int h, void* stream) {
-  return launch_raw(queries, w1, b1, w2, b2, out, F, Q, m, h, stream);
+  return launch_fused<float, true>(queries, w1, nullptr, b1, w2, nullptr, b2,
+                                   nullptr, nullptr, nullptr, out, F, Q, m, h,
+                                   stream);
 }
 

@@ -20,12 +20,12 @@ LAUNCHES = {"box_lb": 0}
 _SIGNATURES = {
     "box_lb": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
-_MAX_D = 64                     # box dimensions the kernel's tile holds
 
 
 def box_lb_cuda(q: torch.Tensor, lo: torch.Tensor,
                 hi: torch.Tensor) -> torch.Tensor:
-    """(Q, d) points against (L, d) boxes, float32 on one card → (Q, L)."""
+    """(Q, d) points against (L, d) boxes, float32 on one card, any d ≥ 1
+    → (Q, L)."""
     dev = q.device
     common.require(q, "q", torch.float32, 2, dev)
     common.require(lo, "lo", torch.float32, 2, dev)
@@ -35,8 +35,8 @@ def box_lb_cuda(q: torch.Tensor, lo: torch.Tensor,
     if lo.shape[1] != d or tuple(hi.shape) != tuple(lo.shape):
         raise ValueError(f"boxes {tuple(lo.shape)}/{tuple(hi.shape)} do not "
                          f"match points {tuple(q.shape)}")
-    if not 0 < d <= _MAX_D:
-        raise ValueError(f"box_lb takes 1..{_MAX_D} dimensions, got {d}")
+    if d < 1:
+        raise ValueError(f"box_lb takes at least one dimension, got {d}")
     out = torch.empty((Q, L), dtype=torch.float32, device=dev)
     lib = common.load("box_lb", _SIGNATURES)
     err = lib.box_lb(common.ptr(q), common.ptr(lo), common.ptr(hi),

@@ -8,10 +8,11 @@ Each wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, raises if the launch
 reports a CUDA error, and adds one to its entry of :data:`LAUNCHES`.
 
-The fused entries take one of two designs inside the C entry, by the query
-count (:func:`regime`): a weight-streaming block per filter for a few
-queries (``search_early`` asks for one), tensor-core tiles of 128 queries
-otherwise.  One call is one launch either way.
+Every entry, ``filter_mlp`` too, takes one of two designs inside the C
+entry, by the query count (:func:`regime`): a weight-streaming block per
+filter for a few queries (``search_early`` asks for one), tensor-core
+tiles of 128 queries otherwise; ``filter_mlp`` is the float32 instance
+with the raw epilogue.  One call is one launch either way.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ STREAM_MAX_Q = 12
 
 
 def regime(n_queries: int) -> str:
-    """The fused kernel's design for ``n_queries`` queries: ``"stream"``
+    """The filter kernels' design for ``n_queries`` queries: ``"stream"``
     (w1 streamed once per 4 queries) or ``"tile"`` (128-query tiles on the
     tensor cores)."""
     return "stream" if n_queries <= STREAM_MAX_Q else "tile"

@@ -5,7 +5,9 @@ wrapper in ``ops.py`` runs it for CPU tensors and ``chip_smoke.py`` holds
 the kernel against it on the card.  ``filter_predict_destd_split_tf32`` is
 the same function with the layer-1 products taken as the fused kernel's
 tile design takes them on the tensor cores (split TF32, emulated on the
-CPU); the tests hold its error to the card's limit, and no path runs it.
+CPU), and ``filter_predict_split_tf32`` the raw ``filter_predict`` so (the
+``filter_mlp`` kernel's tile design); the tests hold their error to the
+card's limit, and no path runs them.
 """
 from __future__ import annotations
 
@@ -50,6 +52,25 @@ def filter_predict_destd(w1, b1, w2, b2, y_mean, y_std, queries,
     return out
 
 
+def _split_tf32_z(w1, b1, w2f, b2, queries, w1_scale=None) -> torch.Tensor:
+    """The tile design's raw z → (F, Q): q·w1 as split-TF32 steps (three
+    products for float32 weights, two for bf16 and int8, which are exact in
+    TF32), × s1 (int8), + b1, relu, × w2 (already × s2), summed over h,
+    + b2."""
+    pre = split_tf32_matmul(queries, w1.float(),
+                            b_exact=w1.dtype != torch.float32)  # (F, Q, h)
+    if w1_scale is not None:
+        pre = pre * w1_scale[:, None, None]
+    return (torch.relu(pre + b1[:, None, :]) * w2f[:, None, :]).sum(-1) \
+        + b2[:, None]
+
+
+def filter_predict_split_tf32(w1, b1, w2, b2, queries) -> torch.Tensor:
+    """:func:`filter_predict` as the ``filter_mlp`` kernel's tile design
+    computes it: the fused kernel's float32 body, raw epilogue."""
+    return _split_tf32_z(w1, b1, w2.float(), b2, queries)
+
+
 def filter_predict_destd_split_tf32(w1, b1, w2, b2, y_mean, y_std, queries,
                                     offsets=None, w1_scale=None,
                                     w2_scale=None) -> torch.Tensor:
@@ -58,13 +79,8 @@ def filter_predict_destd_split_tf32(w1, b1, w2, b2, y_mean, y_std, queries,
     weights, two for bf16 and int8, which are exact in TF32), then × s1
     (int8), + b1, relu, × w2 (× s2), summed over h, + b2, × y_std + y_mean
     − offsets."""
-    pre = split_tf32_matmul(queries, w1.float(),
-                            b_exact=w1.dtype != torch.float32)  # (F, Q, h)
-    if w1_scale is not None:
-        pre = pre * w1_scale[:, None, None]
     w2f = w2.float() if w2_scale is None else w2.float() * w2_scale[:, None]
-    z = (torch.relu(pre + b1[:, None, :]) * w2f[:, None, :]).sum(-1) \
-        + b2[:, None]
+    z = _split_tf32_z(w1, b1, w2f, b2, queries, w1_scale)
     out = z * y_std[:, None] + y_mean[:, None]
     if offsets is not None:
         out = out - offsets[:, None]

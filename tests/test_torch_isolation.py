@@ -155,7 +155,7 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "fused_filter_mlp",
                                     "fused_filter_mlp_bf16",
                                     "fused_filter_mlp_int8", "box_lb",
-                                    "filter_mlp"}
+                                    "filter_mlp", "replay"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -221,6 +221,26 @@ def test_chip_smoke_new_phases_rehearsal_on_cpu(capsys):
     assert "filters/per_filter/float32/F6" in printed
     assert set(smoke.SUITE_KERNELS) | set(smoke.SEARCH_KERNELS) \
         <= set(smoke.KERNELS)
+
+
+def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
+    """The d = 128 DSTree phase and the training profile, each as
+    chip_smoke.py drives them, at a tiny size on the CPU (where the
+    profiler sees no device and the wrappers launch nothing)."""
+    smoke = _load_smoke()
+    wide = smoke.run_wide_dstree(n=1500, m=256, n_segments=64, n_queries=8,
+                                 device="cpu")
+    assert set(wide["launches"]) == set(smoke.KERNELS)
+    out = smoke.run_end_to_end(n=2000, m=64, n_queries=8, n_brute=8,
+                               leaf_capacity=64, n_global=60, n_local=16,
+                               epochs=20, device="cpu")
+    prof = smoke.training_profile(out["lfi"], "dstree ", skip=4, window=4)
+    assert prof["steps_in_build"] == 20 * ((42 + 16) // 128 or 1)
+    assert prof["wall_ms_per_step"] > 0 and prof["launches_per_step"] == 0
+    assert prof["device_busy_ms_per_step"] is None
+    printed = capsys.readouterr().out
+    assert "dstree d=128 exact search == brute force on 8 queries" in printed
+    assert "dstree training profile (F=" in printed
 
 
 def test_new_modules_are_checked():

@@ -76,11 +76,13 @@ def _series_and_queries(n: int, n_queries: int, m: int = 256):
 
 def test_chip_limits_are_unchanged():
     """The rehearsal below uses chip_smoke.py's limits; they are the first
-    port's float32 limits for every kernel."""
+    port's float32 limits for every kernel that does arithmetic.  The
+    cascade replay only compares and selects, so it is held bitwise."""
     limits = _chip_limits()
     assert set(limits) == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
-                           "box_lb", "filter_mlp"}
+                           "box_lb", "filter_mlp", "replay"}
+    assert limits.pop("replay") == (0.0, 0.0)
     assert set(limits.values()) == {(1e-4, 1e-5)}
 
 
@@ -213,6 +215,50 @@ def test_fused_split_tf32_within_the_chip_limit(payload, entry, n_queries):
     assert np.abs(got - jax_ref).max() <= limit
 
 
+@pytest.mark.parametrize("n_queries", [256, 1])
+def test_raw_split_tf32_within_the_chip_limit(n_queries):
+    """``filter_mlp``'s tile design (the fused kernel's float32 body with
+    the raw epilogue, z = relu(q·w1 + b1)·w2 + b2), emulated at F = 64,
+    m = h = 256, is within ``filter_mlp``'s card limit of the port's plain
+    version and of the JAX package's Pallas ``filter_mlp_kernel`` run in
+    interpret mode, where a one-pass TF32 product is not."""
+    w1, b1, w2, b2 = _suite_stack(64, 256, 256)[:4]
+    _, queries = _series_and_queries(4096, n_queries)
+    jax_ref = np.asarray(j_mlp_ops.filter_predict(
+        jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2), jnp.asarray(b2),
+        jnp.asarray(queries), interpret=True))
+    args = [torch.from_numpy(a) for a in (w1, b1, w2, b2, queries)]
+    got = mlp_ref.filter_predict_split_tf32(*args).numpy()
+    plain = mlp_ref.filter_predict(*args).numpy()
+    assert got.shape == jax_ref.shape == (64, n_queries)
+    limit = _limit("filter_mlp", plain)
+    assert np.abs(got - plain).max() <= limit
+    assert np.abs(got - jax_ref).max() <= limit
+    one_pass = mlp_ref.filter_predict(
+        l2_ref.tf32_round(args[0]), *args[1:4],
+        l2_ref.tf32_round(args[4])).numpy()
+    assert np.abs(one_pass - plain).max() > 4 * limit
+
+
+def test_raw_entry_shares_the_fused_designs():
+    """The ``filter_mlp`` C entry launches the fused float32 designs with
+    the raw epilogue (the first port's loop is gone), so it takes the same
+    design by Q; its ragged held calls on the card are the fused float32
+    entry's, and the emulation is within the limit on each."""
+    source = (common.CSRC / "filter_mlp.cu").read_text()
+    assert "mlp_kernel(" not in source and "launch_raw" not in source
+    raw_entry = source[source.index('extern "C" int filter_mlp('):]
+    assert "launch_fused<float, true>(" in raw_entry
+    assert source.count("epilogue<RAW>(") == 2
+    smoke = _load_smoke()
+    assert "mlp_tile_kernel" in smoke.SPLIT_KERNELS
+    for call in smoke.ragged_calls(device="cpu")["fused_filter_mlp"]:
+        q, w1, b1, w2, b2 = call[:5]
+        plain = mlp_ref.filter_predict(w1, b1, w2, b2, q).numpy()
+        got = mlp_ref.filter_predict_split_tf32(w1, b1, w2, b2, q).numpy()
+        assert np.abs(got - plain).max() <= _limit("filter_mlp", plain)
+
+
 def test_regime_follows_the_query_count():
     """search_early's single query streams the weights; batches take the
     tensor-core tiles.  The Python helper and the C entry share the limit."""
@@ -306,7 +352,7 @@ def test_chip_smoke_tensor_core_bound():
     assert smoke._bound("slab_l2", (qs, ss))[1] == "operations"
     assert {name for name, (_, passes) in smoke.DESIGN.items() if passes} \
         == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
-            "fused_filter_mlp_bf16", "fused_filter_mlp_int8"}
+            "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "filter_mlp"}
     assert set(smoke.DESIGN) == set(smoke.KERNELS)
 
 
