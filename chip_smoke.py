@@ -16,13 +16,21 @@
    pairwise kernel for 64 queries, and that every kernel of the path was
    launched (the launch counters are zeroed just before the build and read
    just after the last search).  The cascade replay of every batch and of
-   the calibration runs as one launch of the replay kernel.
+   the calibration runs as one launch of the replay kernel; every training
+   step of every build is one launch each of the two training kernels and
+   every validation pass one of ``filter_mlp`` (asserted from the counters:
+   no step runs autograd).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
    replay timed alone on the summaries the engine hands it), and profiles
    it for the device's busy time, launches and idle share; breaks the
    build's training-data collection (``t_collect``) down by step; profiles
    50 steps of filter training (``training_profile``: wall and device-busy
-   time, launches and the top device operations per step).
+   time, launches and the top device operations per step); holds the
+   training kernels against the plain (autograd) step from the build's own
+   state and draws: one step, every parameter and velocity within the
+   limit, and 50 steps, the validation rows' predictions within
+   ``STEPS_DZ_LIMIT``; a TF32 run of the plain step beside each, the
+   control.
 4. Single-query early-termination search (``search_early``, paper Alg. 2 as
    written) on the same DSTree index for 32 of its queries, k = 1 and 5,
    exact and at target 0.99: per-query wall time (median, p90), searched
@@ -52,7 +60,14 @@
    just before the build, read after the last search).  Prints each
    index's recall@1 at target 0.99 on its own calibration split (DSTree's
    too) beside the tuner's quality knots.  Then the same layer and
-   collection breakdowns for iSAX.
+   collection breakdowns for iSAX.  Then the paper's deep- and sift-like
+   collections at their own widths (m = 96 and 128, 200,000 series each,
+   ``run_datasets``): a DSTree build, 64 queries exact and at 0.99, k = 1
+   and 5, exact == brute force; each index's filters trained a second time
+   with the plain step on the card, the mean val_rmse_z within
+   ``TRAINING_RMSE_LIMIT`` (relative) and the filters' predictions on the
+   queries within ``TRAINING_DZ_LIMIT``, and a third time with TF32
+   allowed, the control.
 8. Holds each kernel against its plain PyTorch version on the card, on the
    largest inputs the main paths gave it (the replay bitwise, its top-k and
    its three counters, also on calibration's largest call; and, for the
@@ -74,7 +89,10 @@
    Q = 1 and rows apart), and the filter kernels on their largest call's
    weights at the Q on either side of the stream design's limit, so every
    instance of both designs is held; ``filter_mlp`` is timed beside the
-   fused float32 kernel at its own call.  The build's ``-Xptxas -v`` lines
+   fused float32 kernel at its own call.  The training kernels are held on
+   one step of the largest build (every output: dpred, or the updated
+   parameters and velocities) and, untimed, at F = 1 and 3, m = h = 96,
+   128 and 65, h != m and batches 128, 8 and 4.  The build's ``-Xptxas -v`` lines
    (registers, shared memory, spills) are printed per kernel; the
    redesigned kernels must not spill.
 9. Prints ``{"kernels": [...]}`` and, as the last line,
@@ -98,6 +116,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+#: what the training kernels replace: no Pallas kernel
+TRAIN_SOURCE = ("no Pallas kernel: the reference's jitted SGD step, "
+                "src/repro/core/filter_training.py:274")
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
     # the limits are a few times the f32 reading, below what a TF32 run of
@@ -133,7 +154,42 @@ KERNELS = {
                "src/repro/core/engine.py:307",
                (0.0, 0.0), "comparisons and selection only: bitwise, the "
                "top-k and all three counters"),
+    # dpred carries the loss's 2·w/(F·batch) scale, so an absolute term
+    # would hold nothing: within 2e-5 of its own largest value (tighter
+    # than 1e-4 + 1e-5·max below max 10)
+    "train_forward": ("src/repro_torch/csrc/filter_train.cu",
+                      TRAIN_SOURCE, (0.0, 2e-5), "dpred: f32 layer-1 sums "
+                      "over m and h in another order, relative to "
+                      "max|dpred|"),
+    # the velocities relative to their own max (no absolute term), beyond it
+    # only by what relu flips can move (FLIP_PRE); each parameter bitwise
+    # its own update p - lr·v from the kernel's velocity
+    "train_backward_sgd": ("src/repro_torch/csrc/filter_train.cu",
+                           TRAIN_SOURCE, (0.0, 2e-5), "v_w1, v_b1, v_w2, "
+                           "v_b2: f32 sums over m and the rows in another "
+                           "order, relative to max|v| each; w1, b1, w2, b2: "
+                           "bitwise p - lr·v of the kernel's own v"),
 }
+#: relu's derivative jumps at 0: a layer-1 sum within rounding of 0 may land
+#: on the other side in the plain version and move its column of the v_b1
+#: and v_w1 update by |dpred·w2| and |dpred·w2·x| (at F = 4096 a few of 168M
+#: sums do).  A sum counts as within rounding of 0 when |pre| <= FLIP_PRE x
+#: (|x|·|w1| + |b1|), 2.6x the split-TF32 accumulator's worst drift over m =
+#: 256 (96 steps, each rounding toward zero by up to 2^-23 of the sum); the
+#: elements of v_w1 and
+#: v_b1 may exceed their limit by the sum of those moves and no more
+#: (``_flip_room``).  v_w2 and v_b2 take relu(pre) itself, which does not jump.
+FLIP_PRE = 3e-5
+#: the 50-step hold's limit on max |dz| over the validation rows: the
+#: kernels read 1.19e-5, a TF32 run of the plain step 1.64e-4 (an H100)
+STEPS_DZ_LIMIT = 5e-5
+#: the whole training's limits: on the relative difference of mean
+#: val_rmse_z (the kernels read 1.1e-7 on deep and 3.1e-7 on sift, a TF32
+#: run of the plain training 1.1e-6 and 4.2e-7: on sift this mean cannot
+#: tell the two apart), and on max |dz| of the trained filters over the
+#: phase's queries (the kernels 8.8e-5 and 1.6e-5, TF32 3.7e-3 and 2.3e-3)
+TRAINING_RMSE_LIMIT = 6e-7
+TRAINING_DZ_LIMIT = 4e-4
 #: design of each kernel, and the tensor-core passes of the split-TF32 ones
 #: (products per float32 multiply-add; bf16/int8 weights are exact in TF32)
 DESIGN = {
@@ -157,16 +213,29 @@ DESIGN = {
                "against the chunk's bsf, the candidates' slots preloaded "
                "(kk <= 8) and walked one by one; top-k in registers for "
                "k <= 32, in the output row beyond", None),
+    "train_forward": ("split-TF32 mma.sync, one filter a block, its 160 "
+                      "gathered rows x 128-lane chunks, 3-stage cp.async; "
+                      "writes dpred only", 3),
+    "train_backward_sgd": ("one block per (filter, 128-lane chunk): layer 1 "
+                           "recomputed (split-TF32), dpre in shared memory, "
+                           "X^T.dpre on split-TF32 mma.sync summed per "
+                           "32-row stage, SGD in the epilogue; a batch "
+                           "above 128 in 160-row tiles, g_w1 summed in the "
+                           "velocity", 3),
 }
 #: the redesigned kernels, whose ptxas report must show no spills
 SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
-                 "mlp_stream_kernel", "box_lb_kernel", "replay_kernel")
+                 "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
+                 "train_forward_kernel", "train_backward_sgd_kernel")
+#: the kernels every build launches: training's two a step, ``filter_mlp``
+#: for its validation passes
+BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
 #: the kernels each path launches
 DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb",
-                  "replay")
+                  "replay") + BUILD_KERNELS
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
                 "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb",
-                "replay")
+                "replay") + BUILD_KERNELS
 SEARCH_KERNELS = ("box_lb", "fused_filter_mlp")     # early and grouped
 GROUPED_KERNELS = SEARCH_KERNELS + ("replay",)
 SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
@@ -189,10 +258,11 @@ def card_line() -> str:
 def _counter_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.replay import kernel as replay_kernel
     return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
-            replay_kernel.LAUNCHES)
+            replay_kernel.LAUNCHES, train_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -221,11 +291,15 @@ def capture_largest_inputs(captured: dict):
     ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
     (count and last arguments, under ``box_lb@shapes``); for the replay
     the largest call made by calibration apart (``replay@calibration``,
-    the calls inside ``conformal.simulate_search``).  The wrappers
+    the calls inside ``conformal.simulate_search``).  The training kernels'
+    calls all have one size per build; of the largest build's, the
+    ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
+    it was given cloned (later steps update them in place).  The wrappers
     themselves, and their launch counts, are unchanged."""
     from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.replay import kernel as replay_kernel
     in_calibration = []
@@ -267,11 +341,36 @@ def capture_largest_inputs(captured: dict):
             return out
         saved.append((mod, attr, fn))
         setattr(mod, attr, wrapped)
+    calls = {"train_forward": 0, "train_backward_sgd": 0}
+    clones: dict = {}
+    for name, n_state in (("train_forward", 4), ("train_backward_sgd", 8)):
+        fn = getattr(train_kernel, f"{name}_cuda")
+
+        def wrapped_train(*args, _fn=fn, _name=name, _n=n_state):
+            calls[_name] += 1
+            ig, il = args[6:8] if _name == "train_forward" else args[10:12]
+            size = args[0].shape[0] * (ig.shape[0] + il.shape[0])
+            if (calls[_name] == TRAIN_CAPTURE_CALL
+                    and size > captured.get(_name, (0, None))[0]):
+                if _name == "train_forward":
+                    clones.clear()
+                for a in args[:_n]:
+                    if id(a) not in clones:
+                        clones[id(a)] = a.clone()
+                state = tuple(clones[id(a)] for a in args[:_n])
+                captured[_name] = (size, state + tuple(args[_n:]))
+            return _fn(*args)
+        saved.append((train_kernel, f"{name}_cuda", fn))
+        setattr(train_kernel, f"{name}_cuda", wrapped_train)
     try:
         yield captured
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+#: the training kernels' call kept per build (a step with velocities)
+TRAIN_CAPTURE_CALL = 10
 
 
 def _sync(device) -> None:
@@ -319,6 +418,34 @@ def _check_launches(launches: dict, expected, label: str,
     missing = [k for k in expected if launches.get(k, 0) <= 0]
     assert not (on_card and missing), \
         f"kernels never launched on the {label} path: {missing}"
+
+
+def _training_counts(lfi) -> tuple:
+    """(steps, validation passes) of the index's filter training."""
+    cfg = lfi.config
+    n_cal = max(int(cfg.n_global * cfg.calib_fraction), 8)
+    n_steps = cfg.train.epochs * max(
+        (cfg.n_global - n_cal + cfg.n_local) // cfg.train.batch, 1)
+    return n_steps, len(range(0, n_steps, max(n_steps // 20, 1)))
+
+
+def _check_build_launches(launches: dict, lfi, label: str,
+                          on_card: bool) -> None:
+    """On the card, every training step of the build ran both training
+    kernels (the backward one once per row tile: once at the default batch)
+    and every validation pass ``filter_mlp`` once: no step took the plain
+    (autograd) version."""
+    from repro_torch.kernels.filter_train import ref as train_ref
+    n_steps, n_val = _training_counts(lfi)
+    batch = lfi.config.train.batch
+    tiles = train_ref.row_tiles(batch, max(batch // 4, 1))
+    want = {"train_forward": n_steps, "train_backward_sgd": n_steps * tiles,
+            "filter_mlp": n_val}
+    got = {k: launches.get(k, 0) for k in want}
+    log(f"{label}training: {n_steps} steps, {n_val} validation passes; "
+        f"launches {json.dumps(got)}")
+    assert not on_card or got == want, \
+        f"{label}training launches {got}, expected {want}"
 
 
 def _search_line(prefix: str, r, exact, wall: float, n_queries: int) -> str:
@@ -444,6 +571,7 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
                                       for impl in ("default", "pairwise")],
                        n_brute, "")
     _check_launches(launches, DSTREE_KERNELS, "DSTree", on_card)
+    _check_build_launches(launches, lfi, "dstree ", on_card)
     return {"launches": launches, "results": results, "lfi": lfi,
             "queries": queries, "targets": targets}
 
@@ -486,8 +614,10 @@ def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
                          r, results["exact"][0], wall, n_queries))
     _brute_force_check(lfi, queries, [results["exact"][0]], n_queries,
                        f"dstree d={2 * n_segments} ")
-    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay"),
-                    f"DSTree d={2 * n_segments}", on_card)
+    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay")
+                    + BUILD_KERNELS, f"DSTree d={2 * n_segments}", on_card)
+    _check_build_launches(launches, lfi, f"dstree d={2 * n_segments} ",
+                          on_card)
     return {"launches": launches}
 
 
@@ -719,8 +849,17 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
                                       for p in PAYLOADS],
                        n_brute, "isax ")
     _check_launches(launches, ISAX_KERNELS, "iSAX", on_card)
+    _check_build_launches(launches, lfi, "isax ", on_card)
     return {"launches": launches, "results": results, "lfi": lfi,
             "queries": queries}
+
+
+def _kernel_name(name: str) -> str:
+    """A device event's kernel name without ``void``, the anonymous
+    namespace the port's kernels live in, template arguments and
+    parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
 
 
 def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
@@ -790,8 +929,8 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
-    for e in kernels:                     # template arguments dropped
-        short = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+    for e in kernels:
+        short = _kernel_name(e.name)
         by_name[short] = by_name.get(short, 0.0) \
             + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -898,25 +1037,18 @@ class _StopTraining(Exception):
     """Ends ``training_profile``'s run after its measured window."""
 
 
-def training_profile(lfi, label: str = "", skip: int = 50,
-                     window: int = 50) -> dict:
-    """Where a filter-training step's time goes.  ``train_filters`` runs on
-    the built index's training data (``collect_training_data`` again, with
-    the build's seed, split and step count) and stops after ``skip`` + 2 x
-    ``window`` steps: steps ``skip`` .. ``skip + window`` are timed on the
-    host clock around a synchronize (the step's wall), the next ``window``
-    under ``torch.profiler`` (device-busy time, launches and the top device
-    operations per step).  The validation pass every ``n_steps // 20``
-    steps falls into each window about as often as in the build."""
+def _training_data(lfi):
+    """The index's training inputs as its build drew them: the training
+    data collected again with the build's seed (the same queries), less the
+    calibration split, the build's training config, and the generator in
+    the state the build's ``train_filters`` found it (the same initial
+    weights and minibatch draws follow)."""
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import filter_training
-
     idx, cfg = lfi.index, lfi.config
-    dev = idx.device
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    gen = torch.Generator(device=idx.device).manual_seed(cfg.seed)
     data = filter_training.collect_training_data(
         idx, lfi.leaf_ids, cfg.n_global, cfg.n_local, gen)
     n_cal = len(lfi.calib.queries)                # build_leafi's split
@@ -924,20 +1056,47 @@ def training_profile(lfi, label: str = "", skip: int = 50,
         data, global_queries=data.global_queries[:-n_cal],
         global_d_L=data.global_d_L[:-n_cal],
         global_d_lb=data.global_d_lb[:-n_cal])
-    cfg_train = dataclasses.replace(cfg.train, hidden=cfg.hidden)
-    n_steps = cfg.train.epochs * max(
+    return data, dataclasses.replace(cfg.train, hidden=cfg.hidden), gen
+
+
+def training_profile(lfi, label: str = "", skip: int = 50,
+                     window: int = 50) -> dict:
+    """Where a filter-training step's time goes.  ``train_filters`` runs on
+    the built index's training data (``_training_data``: the build's data,
+    split, step count and draws) and stops after ``skip`` + 2 x ``window``
+    steps: steps ``skip`` .. ``skip + window`` are timed on the host clock
+    around a synchronize (the step's wall), the next ``window`` under
+    ``torch.profiler`` (device-busy time, launches and the top device
+    operations per step).  The validation pass every ``n_steps // 20``
+    steps falls into each window about as often as in the build.  The
+    state at step ``skip`` (parameters, velocities, inputs) and the timed
+    window's draws are returned under ``state`` for ``hold_training``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import filter_training
+
+    dev = lfi.index.device
+    data, cfg_train, gen = _training_data(lfi)
+    n_steps = cfg_train.epochs * max(
         (data.global_queries.shape[0] + data.local_queries.shape[1])
-        // cfg.train.batch, 1)
+        // cfg_train.batch, 1)
     if n_steps <= skip + 2 * window:
         raise ValueError(f"the build trains {n_steps} steps, fewer than the "
                          f"profile's {skip + 2 * window + 1}")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks: dict = {}
+    state: dict = {}
     step = [0]
-    loss_fn = filter_training._minibatch_loss
+    step_fn = filter_training.sgd_step
 
-    def counted_loss(*args, **kw):
+    def counted_step(tp, vel, inp, ig, il, lr, momentum):
         i = step[0]
+        if i == skip:
+            state.update(tp={k: v.clone() for k, v in tp.items()},
+                         vel={k: v.clone() for k, v in vel.items()},
+                         inp=inp, momentum=momentum, draws=[], step=i)
+        if skip <= i < skip + window:
+            state["draws"].append((ig, il, lr))
         if i in (skip, skip + window, skip + 2 * window):
             _sync(dev)
             marks[i] = time.perf_counter()
@@ -947,15 +1106,15 @@ def training_profile(lfi, label: str = "", skip: int = 50,
             prof.stop()
             raise _StopTraining
         step[0] += 1
-        return loss_fn(*args, **kw)
+        return step_fn(tp, vel, inp, ig, il, lr, momentum)
 
-    filter_training._minibatch_loss = counted_loss
+    filter_training.sgd_step = counted_step
     try:
-        filter_training.train_filters(idx, data, cfg_train, gen)
+        filter_training.train_filters(lfi.index, data, cfg_train, gen)
     except _StopTraining:
         pass
     finally:
-        filter_training._minibatch_loss = loss_fn
+        filter_training.sgd_step = step_fn
     wall = (marks[skip + window] - marks[skip]) / window * 1e3
     profiled_wall = (marks[skip + 2 * window]
                      - marks[skip + window]) / window * 1e3
@@ -964,7 +1123,7 @@ def training_profile(lfi, label: str = "", skip: int = 50,
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / window
     by_name: dict = {}
     for e in kernels:
-        short = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        short = _kernel_name(e.name)
         by_name[short] = by_name.get(short, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / window
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -978,6 +1137,243 @@ def training_profile(lfi, label: str = "", skip: int = 50,
     log(f"{label}training profile (F={out['F']}, steps {skip}..{skip + window}"
         f" timed, {skip + window}..{skip + 2 * window} profiled, of the "
         f"build's {n_steps}): " + json.dumps(out))
+    return {**out, "state": state}
+
+
+def _train_from(state: dict, step, n: int) -> tuple:
+    """(parameters, velocities, ms a step) after ``n`` steps taken by
+    ``step`` from a copy of ``state`` (``training_profile``'s) with its
+    draws; the steps timed on the host clock between two synchronizes."""
+    tp = {k: v.clone() for k, v in state["tp"].items()}
+    vel = {k: v.clone() for k, v in state["vel"].items()}
+    dev = tp["w1"].device
+    _sync(dev)
+    t0 = time.perf_counter()
+    for ig, il, lr in state["draws"][:n]:
+        step(tp, vel, state["inp"], ig, il, lr, state["momentum"])
+    _sync(dev)
+    return tp, vel, (time.perf_counter() - t0) / n * 1e3
+
+
+def _step_args(state: dict) -> tuple:
+    """``train_backward_sgd``'s call for the first step of ``state``'s
+    window: the state before it, the plain forward pass's dpred, lr and
+    momentum (what ``_errors`` and ``_flip_room`` read)."""
+    from repro_torch.kernels.filter_train import ref as train_ref
+    tp, vel, inp = state["tp"], state["vel"], state["inp"]
+    ig, il, lr = state["draws"][0]
+    params = tuple(tp[k] for k in train_ref.TRAINABLE)
+    dpred = train_ref.train_forward(*params, inp.xg, inp.xl, ig, il, inp.ygz,
+                                    inp.ylz, inp.vg, inp.vl, inp.w_g)
+    return (params + tuple(vel[k] for k in train_ref.TRAINABLE)
+            + (inp.xg, inp.xl, ig, il, dpred, lr, state["momentum"]))
+
+
+def _tf32(fn, *args):
+    """``fn(*args)`` with TF32 matmuls allowed (the controls)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def hold_training(state: dict, label: str = "") -> dict:
+    """The training kernels against the plain step on a build's own state
+    and draws (``training_profile``'s): one step, every parameter and
+    velocity within ``train_backward_sgd``'s limit (``_errors``); then the
+    window's steps from the same state, the two sets' predictions on the
+    validation rows within ``STEPS_DZ_LIMIT`` (z units).  A TF32 run of the
+    plain step is read against both as the control.  The plain step is
+    ``filter_train/ref.autograd_step``, what the CPU path runs."""
+    from repro_torch.core import filter_training
+    from repro_torch.kernels.filter_mlp import ref as mlp_ref
+    from repro_torch.kernels.filter_train import ref as train_ref
+    kernel_step, plain_step = filter_training.sgd_step, \
+        train_ref.autograd_step
+    _, _, (atol, rtol), _ = KERNELS["train_backward_sgd"]
+    names = [p + k for p in ("", "v_") for k in train_ref.TRAINABLE]
+    args = _step_args(state)
+
+    def flat(trained):
+        return [trained[i][k] for i in (0, 1) for k in train_ref.TRAINABLE]
+    want = flat(_train_from(state, plain_step, 1))
+    got = _errors("train_backward_sgd",
+                  flat(_train_from(state, kernel_step, 1)), want, args)
+    tf32 = _errors("train_backward_sgd", flat(_tf32(
+        _train_from, state, plain_step, 1)), want, args)
+    step_errs = {n: {**e, "tf32": t} for n, e, t in zip(names, got, tf32)}
+    verdict = "would accept" if all(map(_within, tf32)) else "rejects"
+    log(f"{label}training, one step from step {state['step']} of the "
+        f"build's state, kernels vs plain (each velocity within {atol:g} + "
+        f"{rtol:g} x max|plain| or, v_w1 and v_b1, beyond it by no more than "
+        f"relu flips move it; each parameter bitwise p - lr·v of its own "
+        f"velocity): {_train_summary(got)}; a TF32 run of the plain step, "
+        f"which the limit {verdict}: {_train_summary(tf32)}")
+    bad = [n for n, e in zip(names, got) if not _within(e)]
+    assert not bad, f"{label}training step disagrees in {bad}"
+    n = len(state["draws"])
+    got, _, kernel_ms = _train_from(state, kernel_step, n)
+    want, _, plain_ms = _train_from(state, plain_step, n)
+    control, _, _ = _tf32(_train_from, state, plain_step, n)
+    inp = state["inp"]
+    val = inp.xg[inp.vg > 0]
+
+    def z(trained):
+        return mlp_ref.filter_predict(*(trained[k]
+                                        for k in train_ref.TRAINABLE), val)
+    dz = (z(got) - z(want)).abs().max().item()
+    dz_tf32 = (z(control) - z(want)).abs().max().item()
+    verdict = "would accept" if dz_tf32 <= STEPS_DZ_LIMIT else "rejects"
+    log(f"{label}training, {n} steps from the same state: max |dz| on the "
+        f"{val.shape[0]} validation rows {dz:.3g} (limit "
+        f"{STEPS_DZ_LIMIT:g}), a TF32 run of the plain step {dz_tf32:.3g} "
+        f"(which the limit {verdict}); "
+        f"a step {kernel_ms:.3f} ms by the kernels, {plain_ms:.3f} ms by the "
+        "plain step (host clock, no validation pass)")
+    assert dz <= STEPS_DZ_LIMIT, f"{label}training drifts from the plain step"
+    return {"one_step": step_errs, "steps": n, "max_dz": dz,
+            "max_dz_tf32": dz_tf32, "kernel_ms_per_step": kernel_ms,
+            "plain_ms_per_step": plain_ms}
+
+
+def _retrain(lfi, step) -> tuple:
+    """The index's filters trained again on the build's own data, initial
+    weights and draws, each step taken by ``step``: (parameters, mean
+    val_rmse_z)."""
+    from repro_torch.core import filter_training
+    data, cfg_train, gen = _training_data(lfi)
+    saved = filter_training.sgd_step
+    filter_training.sgd_step = step
+    try:
+        params, report = filter_training.train_filters(lfi.index, data,
+                                                       cfg_train, gen)
+    finally:
+        filter_training.sgd_step = saved
+    return params, float(report["val_rmse_z"].mean())
+
+
+def _retrained(lfi, step):
+    """``_retrain``'s index, its tuners refit on the calibration split, and
+    that training's mean val_rmse_z."""
+    import dataclasses
+
+    from repro_torch.core import build, filters
+    params, rmse = _retrain(lfi, step)
+    params = filters.quantize_mlp(params, lfi.config.weight_dtype)
+    other = build.requantize_leafi(
+        dataclasses.replace(lfi, filter_params=params),
+        lfi.config.weight_dtype, device=lfi.index.device)
+    return other, rmse
+
+
+#: the paper's collections the datasets phase builds, at their own widths
+DATASETS = ("deep", "sift")
+
+
+def run_datasets(*, n: int = 200_000, n_queries: int = 64,
+                 leaf_capacity: int = 256, n_global: int = 600,
+                 n_local: int = 200, epochs: int = 300,
+                 device: str = "cuda") -> dict:
+    """DSTree builds of the deep- and sift-like collections at their own
+    widths (m = 96 and 128; ``n`` series, numpy seed 0), ``n_queries``
+    queries exact and at 0.99, k = 1 and 5: build phases, F, pruning,
+    recall; asserts exact == brute force and (on the card) that the build
+    ran both training kernels at every step.  Each index's filters are then
+    trained again with the plain step on the card (the same data, initial
+    weights and draws): the mean val_rmse_z of the two trainings within
+    ``TRAINING_RMSE_LIMIT`` of each other (relative) and the trained
+    filters' raw predictions on the queries within ``TRAINING_DZ_LIMIT``,
+    recall@1 at 0.99 of both indexes printed; and a third time with TF32
+    allowed, whose readings are printed beside as the control."""
+    import torch
+    from repro_torch.core import build, filter_training
+    from repro_torch.data.series import make_series_dataset
+    from repro_torch.kernels.filter_mlp import ref as mlp_ref
+    from repro_torch.kernels.filter_train import ref as train_ref
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for name in DATASETS:
+        t0 = time.perf_counter()
+        series = make_series_dataset(name, n)
+        log(f"data: {name} {n} x {series.shape[1]} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = build.LeaFiConfig(
+            backbone="dstree", leaf_capacity=leaf_capacity,
+            t_filter_over_t_series=20.0, n_global=n_global, n_local=n_local,
+            train=filter_training.TrainConfig(epochs=epochs))
+        queries, _ = _query_setup(series, n_queries)
+        _zero_counters()
+        t0 = time.perf_counter()
+        lfi = build.build_leafi(series, cfg, device=device)
+        _sync(device)
+        _build_lines(f"{name} ", lfi, time.perf_counter() - t0, on_card)
+        results = {}
+        for k in (1, 5):
+            for tname, target in (("exact", None), ("0.99", 0.99)):
+                _sync(device)
+                t0 = time.perf_counter()
+                r = lfi.search(queries, k=k, quality_target=target,
+                               device=device)
+                _sync(device)
+                results[(k, tname)] = (r, time.perf_counter() - t0)
+        launches = _launch_counters()
+        for (k, tname), (r, wall) in results.items():
+            assert r.dists.shape == (n_queries, k), r.dists.shape
+            assert np.isfinite(r.dists).all(), f"non-finite dists {name}"
+            log(_search_line(f"{name} k={k} target={tname:5s}", r,
+                             results[(k, "exact")][0], wall, n_queries))
+        _brute_force_check(lfi, queries, [results[(k, "exact")][0]
+                                          for k in (1, 5)],
+                           n_queries, f"{name} ")
+        _check_launches(launches, DSTREE_KERNELS, name, on_card)
+        _check_build_launches(launches, lfi, f"{name} ", on_card)
+
+        t0 = time.perf_counter()
+        plain, plain_rmse = _retrained(lfi, train_ref.autograd_step)
+        _sync(device)
+        t_plain = time.perf_counter() - t0
+        tf32_params, tf32_rmse = _tf32(_retrain, lfi, train_ref.autograd_step)
+        kernel_rmse = lfi.build_report["val_rmse_z"]
+        rel, rel_tf32 = (abs(r / plain_rmse - 1) for r in (kernel_rmse,
+                                                           tf32_rmse))
+        verdict = ("would accept" if rel_tf32 <= TRAINING_RMSE_LIMIT
+                   else "rejects")
+        q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+
+        def z(params, q=q):
+            return mlp_ref.filter_predict(*(params[k] for k in
+                                            train_ref.TRAINABLE), q)
+        z_plain = z(plain.filter_params)
+        dz, dz_tf32 = ((z(p) - z_plain).abs().max().item()
+                       for p in (lfi.filter_params, tf32_params))
+        dz_verdict = ("would accept" if dz_tf32 <= TRAINING_DZ_LIMIT
+                      else "rejects")
+        recall = {}
+        for which, index in (("kernels", lfi), ("plain", plain)):
+            r = index.search(queries, k=1, quality_target=0.99,
+                             device=device)
+            recall[which] = _recall(r.ids, results[(1, "exact")][0].ids)
+            _calib_recall_line(f"{name} trained by the {which} step: ",
+                               index, device)
+        log(f"{name} training, kernels vs the plain step on the card (same "
+            f"data, weights and draws): mean val_rmse_z {kernel_rmse!r} vs "
+            f"{plain_rmse!r} (relative difference {rel:.3g}, limit "
+            f"{TRAINING_RMSE_LIMIT:g}); a TF32 run of the plain training "
+            f"{tf32_rmse!r} ({rel_tf32:.3g}, which the limit {verdict}); "
+            f"the trained filters' max |dz| on the {n_queries} queries "
+            f"{dz:.3g} (limit {TRAINING_DZ_LIMIT:g}), the TF32 run's "
+            f"{dz_tf32:.3g} (which the limit {dz_verdict}); recall@1 at 0.99 on the {n_queries} queries "
+            f"{recall['kernels']:.4f} vs {recall['plain']:.4f}; the plain "
+            f"training and refit took {t_plain:.2f} s against the build's "
+            f"t_train {lfi.build_report['t_train']:.2f} s")
+        assert rel <= TRAINING_RMSE_LIMIT and dz <= TRAINING_DZ_LIMIT, \
+            f"{name}: kernel-trained filters differ from plain-trained"
+        out[name] = {"launches": launches, "lfi": lfi,
+                     "val_rmse_z": (kernel_rmse, plain_rmse, tf32_rmse),
+                     "max_dz": (dz, dz_tf32),
+                     "recall_at_0.99": recall}
     return out
 
 
@@ -1049,6 +1445,8 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         nbytes = 4 * (Q * d + 2 * L * d + Q * L)
     elif name == "replay":
         return _replay_bound(args)
+    elif name in ("train_forward", "train_backward_sgd"):
+        return _train_bound(name, args, passes)
     elif name == "filter_mlp":           # raw z
         q, w1 = args[0], args[1]
         Q = q.shape[0]
@@ -1063,6 +1461,34 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         n_scales = 2 if w1.dtype.itemsize == 1 else 0
         nbytes = (w1.dtype.itemsize * F * (m * h + h)
                   + 4 * (Q * m + F * (h + 4 + n_scales) + F * Q))
+    t_ops = (flops / roofline.H100.peak_flops if passes is None
+             else passes * flops / roofline.H100.tf32_flops)
+    t_bytes = nbytes / roofline.H100.hbm_bw
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _train_bound(name: str, args, passes: int | None) -> tuple:
+    """The training kernels' bound.  Operations: the layer-1 products and
+    the layer-2 multiply-adds (``roofline.mlp_operations`` over the step's
+    rows), for the backward pass twice (the recompute and Xᵀ·dpre) plus the
+    update's 4 per w1 element.  Bytes: the parameters read once (w1, b1,
+    w2, b2), the distinct rows this step gathers, the targets and masks of
+    its rows and dpred written; the backward pass reads dpred and reads and
+    writes every parameter and velocity instead."""
+    from repro_torch.analysis import roofline
+    w1, xg, xl, ig, il = (args[0], args[4], args[5], args[6], args[7]) \
+        if name == "train_forward" else (args[0],) + tuple(args[8:12])
+    F, m, h = w1.shape
+    R = ig.numel() + il.numel()
+    rows = m * (ig.unique().numel() + F * il.unique().numel())
+    n_params = F * (m * h + 2 * h + 1)
+    if name == "train_forward":
+        flops = roofline.mlp_operations(F, R, m, h)
+        nbytes = 4 * (n_params + rows + 3 * F * R) + 8 * R
+    else:
+        flops = 2 * roofline.mlp_operations(F, R, m, h) + 4 * F * m * h
+        nbytes = 4 * (4 * n_params + rows + F * R) + 8 * R
     t_ops = (flops / roofline.H100.peak_flops if passes is None
              else passes * flops / roofline.H100.tf32_flops)
     t_bytes = nbytes / roofline.H100.hbm_bw
@@ -1101,6 +1527,8 @@ def _kernel_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.box_lb import ref as box_ref
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_train import kernel as train_kernel
+    from repro_torch.kernels.filter_train import ref as train_ref
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.l2_scan import ref as l2_ref
     from repro_torch.kernels.replay import kernel as replay_kernel
@@ -1113,7 +1541,9 @@ def _kernel_tables():
                  "fused_filter_mlp_int8": mlp,
                  "box_lb": box_kernel.box_lb_cuda,
                  "filter_mlp": mlp_kernel.filter_mlp_cuda,
-                 "replay": replay_kernel.replay_cascade_cuda}
+                 "replay": replay_kernel.replay_cascade_cuda,
+                 "train_forward": train_kernel.train_forward_cuda,
+                 "train_backward_sgd": train_kernel.train_backward_sgd_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
@@ -1121,7 +1551,9 @@ def _kernel_tables():
                 "fused_filter_mlp_int8": _plain_mlp,
                 "box_lb": box_ref.box_lb,
                 "filter_mlp": _plain_raw_mlp,
-                "replay": replay_ref.replay_cascade}
+                "replay": replay_ref.replay_cascade,
+                "train_forward": train_ref.train_forward,
+                "train_backward_sgd": train_ref.train_backward_sgd}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
 
@@ -1153,28 +1585,128 @@ def _hold_replay(args, label: str) -> dict:
     return {"shapes": shapes, "max_abs_err": 0.0, "tolerance": 0.0}
 
 
+def _scratch(name: str, args) -> tuple:
+    """``args`` with the state ``train_backward_sgd`` updates in place (its
+    first 8 arguments) cloned; other calls' arguments as they are."""
+    if name != "train_backward_sgd":
+        return tuple(args)
+    return tuple(a.clone() for a in args[:8]) + tuple(args[8:])
+
+
+def _outputs(name: str, fn, args) -> list:
+    """A call's outputs: for ``train_backward_sgd`` the parameters and
+    velocities it updates (on clones), else the one output."""
+    if name == "train_backward_sgd":
+        state = _scratch(name, args)
+        fn(*state)
+        return list(state[:8])
+    return [fn(*args)]
+
+
+def _flip_room(args) -> dict:
+    """For ``train_backward_sgd``'s call ``args``: per element of v_w1 and
+    v_b1, the sum of the moves |dpred·w2·x| and |dpred·w2| of the layer-1
+    sums (plain float32) within ``FLIP_PRE`` of 0 in its column."""
+    import torch
+    from repro_torch.kernels.filter_train import ref as train_ref
+    w1, b1, w2 = args[:3]
+    x = train_ref._rows(*args[8:12])
+    pre = torch.bmm(x, w1) + b1[:, None, :]
+    scale = torch.bmm(x.abs(), w1.abs()) + b1.abs()[:, None, :]
+    move = ((pre.abs() <= FLIP_PRE * scale)
+            * (args[12][:, :, None] * w2[:, None, :]).abs())
+    return {"v_w1": torch.bmm(x.abs().transpose(1, 2), move),
+            "v_b1": move.sum(1)}
+
+
+def _errors(name: str, got: list, want: list, args=None) -> list:
+    """Per output: the max abs error, its tolerance (atol + rtol x the
+    output's own max|plain|) and whether it holds (``ok``).  For
+    ``train_backward_sgd`` (``args`` its call, with the state before the
+    step) the outputs are w1, b1, w2, b2 and their velocities: each
+    parameter must equal ``p - lr·v`` of the kernel's own velocity bitwise
+    (``own_update``; ``dp_rel`` is max|Δp − Δp_plain| / max|Δp_plain|,
+    printed) and within 1e-4 + 1e-5 x its max|plain|, each velocity must
+    be within its tolerance or, for v_w1 and
+    v_b1, beyond it by no more than ``_flip_room`` (``beyond`` counts those
+    elements)."""
+    _, _, (atol, rtol), _ = KERNELS[name]
+    room = _flip_room(args) if name == "train_backward_sgd" else {}
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff, top = (g - w).abs(), w.abs().max().item()
+        e = {"max_abs_err": diff.max().item(), "tolerance": atol + rtol * top}
+        if name == "train_backward_sgd" and i < 4:
+            # and within the form every other kernel is held to
+            e["tolerance"] = 1e-4 + 1e-5 * top
+            p_old, v = args[i], got[i + 4]
+            step = (w - p_old).abs().max().item()
+            e.update(own_update=_bitwise_equal(g, p_old - args[13] * v),
+                     dp_rel=e["max_abs_err"] / step if step else None)
+            e["ok"] = e["own_update"] and e["max_abs_err"] <= e["tolerance"]
+        else:
+            over = diff - e["tolerance"]
+            key = ("v_w1", "v_b1", "v_w2", "v_b2")[i - 4] if room else None
+            if key:
+                e["beyond"] = int((over > 0).sum().item())
+                over = over - room.get(key, 0.0)
+            e["ok"] = bool(np.isfinite(e["max_abs_err"])
+                           and over.max().item() <= 0)
+        out.append(e)
+    return out
+
+
+def _within(e: dict) -> bool:
+    return e["ok"]
+
+
+def _train_summary(errs: list) -> str:
+    """train_backward_sgd's per-output readings (error/tolerance), in the
+    order of its outputs."""
+    names = [p + k for p in ("", "v_") for k in ("w1", "b1", "w2", "b2")]
+    parts = []
+    for n, e in zip(names, errs):
+        part = f"{n} {e['max_abs_err']:.3g}/{e['tolerance']:.3g}"
+        if "own_update" in e:
+            dp = "n/a" if e["dp_rel"] is None else f"{e['dp_rel']:.3g}"
+            own = "bitwise" if e["own_update"] else "WRONG"
+            part += f", own update {own}, |Δp − Δp_plain|/max|Δp_plain| {dp}"
+        else:
+            part += f", {e['beyond']} beyond"
+        parts.append(part + ("" if e["ok"] else " OUT"))
+    return "; ".join(parts)
+
+
 def _hold(name: str, args, label: str) -> dict:
-    """One kernel call against its plain version, asserted within the
-    kernel's limit."""
+    """One kernel call against its plain version, every output asserted
+    within the kernel's limit."""
     import torch
     if name == "replay":
         return _hold_replay(args, label)
     _, _, (atol, rtol), why = KERNELS[name]
     kernel_fn, plain_fn, _ = _kernel_tables()
-    got = kernel_fn[name](*args)
+    got = _outputs(name, kernel_fn[name], args)
     torch.cuda.synchronize()
-    want = plain_fn[name](*args)
+    want = _outputs(name, plain_fn[name], args)
     torch.cuda.synchronize()
-    assert got.shape == want.shape, (got.shape, want.shape)
-    diff = (got - want).abs()
-    err = diff.max().item()
-    rel = (diff / (want.abs() + 1e-6)).max().item()
-    tol = atol + rtol * want.abs().max().item()
+    assert [g.shape for g in got] == [w.shape for w in want]
+    errs = _errors(name, got, want, args)
+    # the output nearest its limit
+    near = max(errs, key=lambda e: e["max_abs_err"] / max(e["tolerance"],
+                                                          1e-30))
+    err, tol = near["max_abs_err"], near["tolerance"]
+    rel = max(((g - w).abs() / (w.abs() + 1e-6)).max().item()
+              for g, w in zip(got, want))
     shapes = " x ".join(str(tuple(a.shape)) for a in args[:2])
+    if name.startswith("train"):
+        ig, il = args[6:8] if name == "train_forward" else args[10:12]
+        shapes += f", {ig.numel()} + {il.numel()} rows"
+    each = ("" if len(errs) == 1 else
+            f"; per output (error/tolerance): {_train_summary(errs)}")
     log(f"kernel {label} at {shapes}: max_abs_err={err:.3g} "
         f"max_rel_err={rel:.3g} (tolerance {tol:.3g} absolute = "
-        f"{atol:g} + {rtol:g} x max|plain|: {why})")
-    assert np.isfinite(err) and err <= tol, f"{label} disagrees"
+        f"{atol:g} + {rtol:g} x max|plain|: {why}){each}")
+    assert all(_within(e) for e in errs), f"{label} disagrees"
     return {"shapes": shapes, "max_abs_err": err, "tolerance": tol}
 
 
@@ -1186,16 +1718,20 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     kernel_fn, plain_fn, library_fn = _kernel_tables()
     if name not in ("box_lb", "replay") and label == name:  # no matmul
         # what the same check reads for a TF32 run of the plain version
-        want = plain_fn[name](*args)
+        want = _outputs(name, plain_fn[name], args)
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            tf32_err = (plain_fn[name](*args) - want).abs().max().item()
+            tf32 = _errors(name, _outputs(name, plain_fn[name], args), want,
+                           args)
             torch.cuda.synchronize()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_err = max(e["max_abs_err"] for e in tf32)
         log(f"kernel {name}: a TF32 run of the plain version errs by "
             f"{tf32_err:.3g}, which the limit "
-            f"{'rejects' if tf32_err > held['tolerance'] else 'would accept'}")
+            f"{'would accept' if all(map(_within, tf32)) else 'rejects'}")
+    # the training kernels' update runs in place: timed on a copy
+    args = _scratch(name, args)
     ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
     graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
     # the plain replay is a host loop of ~20 launches a position
@@ -1212,11 +1748,12 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     tc = ("" if passes is None else
           f", split design's bound ({passes} TF32 passes) {split_ms:.4f} ms "
           f"by {split_by}, one-pass TF32 bound {tf32_ms:.4f} ms by {tf32_by}")
+    library = ("none (no single PyTorch call)" if library_ms is None
+               else f"{library_ms:.4f} ms")
     log(f"kernel {label} [{design}]: {ms:.4f} ms through the wrapper, "
         f"{graph_ms:.4f} ms replayed from a CUDA graph (no host-side "
-        f"enqueue), plain {plain_ms:.4f} ms, library "
-        f"{library_ms if library_ms is None else f'{library_ms:.4f}'} "
-        f"ms, f32 CUDA-core bound {bound_ms:.4f} ms by {bound_by}{tc} "
+        f"enqueue), plain {plain_ms:.4f} ms, library {library}, "
+        f"f32 CUDA-core bound {bound_ms:.4f} ms by {bound_by}{tc} "
         f"(peaks at 700 W; card limit {power})")
     return {**held, "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1251,6 +1788,59 @@ RAGGED_BOX = ((1, 4093, 16), (33, 1001, 8), (33, 130, 5), (7, 517, 64),
 RAGGED_REPLAY = ((1, 4093, 5, 5, "sorted"), (37, 1000, 1, 1, "shuffled"),
                  (37, 700, 5, 32, "sorted"), (20, 600, 40, 33, "shuffled"),
                  (9, 500, 7, 257, "sorted"), (64, 129, 3, 5, "shuffled"))
+
+
+#: (F, m, h, batch) of the training kernels' held calls: one filter and
+#: three; m = h = 96 and 128 (the deep and sift widths: a partial 128-lane
+#: chunk, and a whole one) and 65 (m % 4 != 0, h % 4 != 0: unvectorised
+#: staging, a partial 64-column pass of the w1 gradient); h != m (m = 256,
+#: hidden = 128); batches 128 (160 rows, the full tile), 8 and 4 (one local
+#: row), 256 (320 rows: two tiles) and 200 (250 rows: a partial second
+#: tile, global and local rows in it)
+RAGGED_TRAIN = ((1, 96, 96, 128), (3, 128, 128, 8), (3, 65, 65, 4),
+                (1, 256, 128, 128), (3, 96, 96, 4), (2, 128, 128, 256),
+                (3, 96, 96, 200))
+
+
+def train_calls(device: str = "cuda") -> dict:
+    """The training kernels' held calls (numpy seed 3) at
+    ``RAGGED_TRAIN``: z-normalized random-walk rows, 40 global and 12
+    local per filter, so the drawn indices repeat; He-normal weights,
+    nonzero biases and velocities, 20% of the rows masked.  The backward
+    calls take the plain forward pass's dpred."""
+    import torch
+    from repro_torch.kernels.filter_train import ref as train_ref
+    rng = np.random.default_rng(3)
+
+    def t(a, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                               device=device)
+
+    def rows(*shape):
+        x = rng.standard_normal(shape).cumsum(-1)
+        return (x - x.mean(-1, keepdims=True)) / x.std(-1, keepdims=True)
+    calls: dict = {"train_forward": [], "train_backward_sgd": []}
+    n_g, n_l = 40, 12
+    for F, m, h, batch in RAGGED_TRAIN:
+        bl = max(batch // 4, 1)
+        params = (t(rng.standard_normal((F, m, h)) * np.sqrt(2 / m)),
+                  t(rng.standard_normal((F, h)) * 0.1),
+                  t(rng.standard_normal((F, h)) * np.sqrt(2 / h)),
+                  t(rng.standard_normal(F) * 0.1))
+        vels = tuple(t(rng.standard_normal(p.shape) * 1e-3) for p in params)
+        xg, xl = t(rows(n_g, m)), t(rows(F, n_l, m))
+        ig = t(rng.integers(0, n_g, batch), np.int64)
+        il = t(rng.integers(0, n_l, bl), np.int64)
+        rest = (t(rng.standard_normal((F, n_g))),
+                t(rng.standard_normal((F, n_l))),
+                t(rng.random(n_g) < 0.2), t(rng.random(n_l) < 0.2),
+                n_g / (n_g + n_l))
+        fwd = params + (xg, xl, ig, il) + rest
+        calls["train_forward"].append(fwd)
+        calls["train_backward_sgd"].append(
+            params + vels + (xg, xl, ig, il, train_ref.train_forward(*fwd),
+                             1e-2, 0.9))
+    return calls
 
 
 def replay_calls(device: str = "cuda") -> list:
@@ -1380,7 +1970,7 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     largest call; the redesigned kernels also at ragged shapes
     (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
-    ragged = {**ragged_calls(), "replay": replay_calls()}
+    ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls()}
     ragged["filter_mlp"] = [c[:5] for c in ragged["fused_filter_mlp"]]
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():
@@ -1470,7 +2060,8 @@ def main() -> int:
     log(card)
     power = card.split(",")[-1].strip()
     t0 = time.perf_counter()
-    logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay"])
+    logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
+                         "filter_train"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
 
@@ -1489,8 +2080,11 @@ def main() -> int:
     phase("dstree breakdown", search_breakdown, e2e["lfi"], e2e["queries"])
     phase("dstree collect breakdown", collect_breakdown, e2e["lfi"],
           "dstree ")
-    phase("dstree training profile", training_profile, e2e["lfi"],
+    profile = phase("dstree training profile", training_profile, e2e["lfi"],
+                    "dstree ")
+    phase("dstree training holds", hold_training, profile.pop("state"),
           "dstree ")
+    del profile
     paths = [e2e["launches"]]
     paths.append(phase("search_early", run_early, e2e["lfi"],
                        e2e["queries"], e2e["results"], device="cuda",
@@ -1510,6 +2104,9 @@ def main() -> int:
           reps=3, label="isax ")
     phase("isax collect breakdown", collect_breakdown, isax["lfi"], "isax ")
     paths.append(isax["launches"])
+    del isax                              # the iSAX index leaves the card
+    paths += [d["launches"] for d in
+              phase("datasets", run_datasets, device="cuda").values()]
     launches = {name: sum(p.get(name, 0) for p in paths) for name in KERNELS}
     log("launches on all paths: " + json.dumps(launches))
     rows = phase("kernel checks", check_kernels, captured, launches, power)

@@ -6,7 +6,10 @@ collection, searched against every leaf) and *local* queries (noisy samples
 of each selected leaf, searched against their own leaf only) — with both
 target passes on the engine's leaf-slab sweeps.  Training runs every filter
 at once: parameters are stacked on a leading F axis and one SGD-with-
-momentum step updates them all (the reference vmaps its step).
+momentum step updates them all (the reference vmaps its step).  On the card
+a step is two hand-written kernels (``csrc/filter_train.cu``) and the
+validation pass the ``filter_mlp`` kernel; on the CPU a step is autograd of
+the reference's loss.
 
 Random draws come from a ``torch.Generator``.  The functions also take
 pre-drawn inputs (queries, initial parameters, per-step minibatch indices),
@@ -23,8 +26,9 @@ import torch
 from . import bounds as bounds_mod
 from . import engine, filters, summaries
 from .flat_index import FlatIndex
-
-_TRAINABLE = ("w1", "b1", "w2", "b2")
+from ..kernels.common import on_cpu
+from ..kernels.filter_train import kernel as train_kernel
+from ..kernels.filter_train import ref as train_ref
 
 
 # ---------------------------------------------------------------------------
@@ -138,24 +142,30 @@ class TrainConfig:
     seed: int = 0
 
 
-def _local_predict(tp, x):
-    """Each filter on its own query batch: x (F, b, m) → (F, b)."""
-    hidden = torch.relu(torch.bmm(x, tp["w1"]) + tp["b1"][:, None, :])
-    return torch.bmm(hidden, tp["w2"][:, :, None])[:, :, 0] + tp["b2"][:, None]
+def sgd_step(tp: Dict[str, torch.Tensor], vel: Dict[str, torch.Tensor],
+             inp: train_ref.TrainInputs, ig: torch.Tensor, il: torch.Tensor,
+             lr: float, momentum: float) -> None:
+    """One SGD-with-momentum step of every filter, in place.  For CPU
+    tensors autograd of the reference's loss (``filter_train/ref.py``);
+    for CUDA tensors the two training kernels: ``train_forward`` (the
+    forward pass → ∂loss/∂pred), then ``train_backward_sgd`` (gradients
+    and update in one pass, parameters and velocities in place)."""
+    if on_cpu(tp["w1"]):
+        train_ref.autograd_step(tp, vel, inp, ig, il, lr, momentum)
+        return
+    params = [tp[k] for k in train_ref.TRAINABLE]
+    dpred = train_kernel.train_forward_cuda(
+        *params, inp.xg, inp.xl, ig, il, inp.ygz, inp.ylz, inp.vg, inp.vl,
+        inp.w_g)
+    train_kernel.train_backward_sgd_cuda(
+        *params, *(vel[k] for k in train_ref.TRAINABLE), inp.xg, inp.xl, ig,
+        il, dpred, lr, momentum)
 
 
-def _minibatch_loss(tp, xg, ygz, xl, ylz, vg, vl, ig, il, w_g):
-    pred_g = filters.apply_mlp_raw(tp, xg[ig])                  # (F, bg)
-    err_g = (pred_g - ygz[:, ig]) ** 2 * (1 - vg[None, ig])
-    pred_l = _local_predict(tp, xl[:, il])                      # (F, bl)
-    err_l = (pred_l - ylz[:, il]) ** 2 * (1 - vl[None, il])
-    return w_g * err_g.mean() + (1 - w_g) * err_l.mean()
-
-
-def _val_loss(tp, xg, ygz, vg):
-    pred_g = filters.apply_mlp_raw(tp, xg)
-    err = ((pred_g - ygz) ** 2 * vg[None, :]).sum(dim=1)
-    return err / torch.clamp_min(vg.sum(), 1)                    # (F,)
+def _val_loss(tp, inp: train_ref.TrainInputs) -> torch.Tensor:
+    pred_g = filters.apply_mlp_raw(tp, inp.xg)
+    err = ((pred_g - inp.ygz) ** 2 * inp.vg[None, :]).sum(dim=1)
+    return err / torch.clamp_min(inp.vg.sum(), 1)                # (F,)
 
 
 def train_filters(index: FlatIndex, data: TrainingData,
@@ -168,11 +178,11 @@ def train_filters(index: FlatIndex, data: TrainingData,
     """Train one MLP filter per selected leaf; returns (params, report).
 
     Mirrors the reference step for step: per-filter target standardization,
-    SGD with momentum (v ← μv + g, p ← p − lr·v), lr /10 at 60% and 85% of
-    the steps, a validation pass every ``n_steps // 20`` steps keeping each
-    filter's best parameters.  ``init_params`` and ``batch_indices``
-    ((n_steps, batch) global and (n_steps, batch // 4) local row indices)
-    replace the generator's draws when given.
+    SGD with momentum (v ← μv + g, p ← p − lr·v; :func:`sgd_step`), lr /10
+    at 60% and 85% of the steps, a validation pass every ``n_steps // 20``
+    steps keeping each filter's best parameters.  ``init_params`` and
+    ``batch_indices`` ((n_steps, batch) global and (n_steps, batch // 4)
+    local row indices) replace the generator's draws when given.
     """
     dev = index.device
     F = len(data.leaf_ids)
@@ -209,33 +219,29 @@ def train_filters(index: FlatIndex, data: TrainingData,
         il_all = torch.randint(0, n_l, (n_steps, max(cfg.batch // 4, 1)),
                                generator=generator, device=dev)
     else:
-        ig_all, il_all = (t.to(dev) for t in batch_indices)
+        ig_all, il_all = (t.to(dev).contiguous() for t in batch_indices)
 
-    xg, xl = data.global_queries, data.local_queries
-    tp = {k: params[k].detach().clone().requires_grad_(True)
-          for k in _TRAINABLE}
-    vel = {k: torch.zeros_like(tp[k]) for k in _TRAINABLE}
-    best = {k: params[k].detach().clone() for k in _TRAINABLE}
+    inp = train_ref.TrainInputs(
+        data.global_queries.contiguous(), ygz.contiguous(),
+        data.local_queries.contiguous(), ylz.contiguous(), vg, vl, w_g)
+    tp = {k: params[k].detach().clone() for k in train_ref.TRAINABLE}
+    vel = {k: torch.zeros_like(tp[k]) for k in train_ref.TRAINABLE}
+    best = {k: params[k].detach().clone() for k in train_ref.TRAINABLE}
     best_val = torch.full((F,), float("inf"), device=dev)
     eval_every = max(n_steps // 20, 1)
 
     for i in range(n_steps):
         lr = cfg.lr * (1.0 if i < 0.6 * n_steps
                        else 0.1 if i < 0.85 * n_steps else 0.01)
-        _minibatch_loss(tp, xg, ygz, xl, ylz, vg, vl, ig_all[i], il_all[i],
-                        w_g).backward()
-        with torch.no_grad():
-            for k in _TRAINABLE:
-                vel[k].mul_(cfg.momentum).add_(tp[k].grad)
-                tp[k].sub_(lr * vel[k])
-                tp[k].grad = None
-            if i % eval_every == 0:
-                val = _val_loss(tp, xg, ygz, vg)
-                improved = val < best_val
-                for k in _TRAINABLE:
-                    keep = improved.reshape((F,) + (1,) * (tp[k].dim() - 1))
-                    best[k] = torch.where(keep, tp[k], best[k])
-                best_val = torch.minimum(val, best_val)
+        # the step's rows are views of the drawn index tensors: no launch
+        sgd_step(tp, vel, inp, ig_all[i], il_all[i], lr, cfg.momentum)
+        if i % eval_every == 0:
+            val = _val_loss(tp, inp)
+            improved = val < best_val
+            for k in train_ref.TRAINABLE:
+                keep = improved.reshape((F,) + (1,) * (tp[k].dim() - 1))
+                best[k] = torch.where(keep, tp[k], best[k])
+            best_val = torch.minimum(val, best_val)
 
     params.update(best)
     report = {"val_rmse_z": torch.sqrt(best_val).cpu().numpy()}

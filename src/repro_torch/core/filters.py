@@ -52,8 +52,9 @@ def apply_mlp_offset(params: Params, queries: torch.Tensor,
 
 
 def apply_mlp_raw(params: Params, queries: torch.Tensor) -> torch.Tensor:
-    """Raw (standardized-space) predictions — used inside the training loss."""
-    return mlp_ref.filter_predict(params["w1"], params["b1"], params["w2"],
+    """Raw (standardized-space) predictions → (F, Q): training's validation
+    pass; the ``filter_mlp`` kernel on the card."""
+    return mlp_ops.filter_predict(params["w1"], params["b1"], params["w2"],
                                   params["b2"], queries)
 
 

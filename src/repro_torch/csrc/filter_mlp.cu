@@ -182,53 +182,11 @@ mlp_tile_kernel(const float* __restrict__ q, const T* __restrict__ w1,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   float z[M_MI][2] = {};                // rows wm*16*M_MI + i*16 + g (+ 8)
 
-#pragma unroll
-  for (int st = 0; st < M_STAGES - 1; ++st) {
-    if (st < steps) load(st);
-    tf32x3::cp_async_commit();
-  }
-
-  for (int step = 0; step < steps; ++step) {
-    tf32x3::cp_async_wait<M_STAGES - 2>();
-    __syncthreads();                    // stage `step` landed; the last is free
-    if (step + M_STAGES - 1 < steps) load(step + M_STAGES - 1);
-    tf32x3::cp_async_commit();
-
-    const float* As = q_stage(step % M_STAGES);
-    const T* Ws = w_stage(step % M_STAGES);
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 8) {
-      uint32_t bh[M_NI][2], bl[M_NI][2];
-#pragma unroll
-      for (int j = 0; j < M_NI; ++j) {
-        const T* b = Ws + (kk + t) * S::WLD + wn * 8 * M_NI + j * 8 + g;
-        const float v0 = upcast(b[0]), v1 = upcast(b[4 * S::WLD]);
-        if constexpr (kF32) {
-          tf32x3::split(v0, bh[j][0], bl[j][0]);
-          tf32x3::split(v1, bh[j][1], bl[j][1]);
-        } else {                        // exact in TF32
-          bh[j][0] = __float_as_uint(v0);
-          bh[j][1] = __float_as_uint(v1);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < M_MI; ++i) {
-        const float* a = As + (wm * 16 * M_MI + i * 16 + g) * QLD + kk + t;
-        uint32_t ah[4], al[4];
-        tf32x3::split(a[0], ah[0], al[0]);
-        tf32x3::split(a[8 * QLD], ah[1], al[1]);
-        tf32x3::split(a[4], ah[2], al[2]);
-        tf32x3::split(a[8 * QLD + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < M_NI; ++j) {
-          if constexpr (kF32)
-            tf32x3::mma3(acc[i][j], ah, al, bh[j], bl[j]);
-          else
-            tf32x3::mma2(acc[i][j], ah, al, bh[j]);
-        }
-      }
-    }
-
+  tf32x3::cp_async_ring<M_STAGES>(steps, load, [&](int step) {
+    tf32x3::warp_stage<M_MI, M_NI, MK, QLD, S::WLD, kF32>(
+        acc, q_stage(step % M_STAGES) + wm * 16 * M_MI * QLD,
+        w_stage(step % M_STAGES) + wn * 8 * M_NI, g, t,
+        [](T w) { return upcast(w); });
     if (step % nk == nk - 1) {          // the chunk's hidden lanes are done
       const int h0 = step / nk * MH;
 #pragma unroll
@@ -255,8 +213,7 @@ mlp_tile_kernel(const float* __restrict__ q, const T* __restrict__ w1,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     }
-  }
-  tf32x3::cp_async_wait<0>();
+  });
 
   // the 4 threads of a quad hold one query row's lanes 2t, 2t + 1
 #pragma unroll

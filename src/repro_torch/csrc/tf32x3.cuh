@@ -1,5 +1,6 @@
 // Split-TF32 tensor-core products and cp.async staging for Hopper (sm_90a),
-// shared by l2_scan.cu and filter_mlp.cu.
+// shared by l2_scan.cu, filter_mlp.cu and filter_train.cu; the last two take
+// their layer-1 products through one ring and warp stage (below).
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits, so one TF32 product
 // errs by ~2^-11 relative: a TF32 run of the kernels' plain versions misses
@@ -133,6 +134,73 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0,
 
 __host__ __device__ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The ring of STAGES cp.async stages: load(s) issues step s's copies,
+// compute(s) consumes them once they have landed, STAGES - 1 steps ahead.
+// Returns with every copy landed; the caller syncs before it reuses the
+// ring's shared memory.
+template <int STAGES, typename Load, typename Compute>
+__device__ __forceinline__ void cp_async_ring(int steps, Load&& load,
+                                              Compute&& compute) {
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                    // step s landed; the oldest is free
+    if (s + STAGES - 1 < steps) load(s + STAGES - 1);
+    cp_async_commit();
+    compute(s);
+  }
+  cp_async_wait<0>();
+}
+
+// acc += A . B over one staged TK-deep slice, on one warp's tile: A row-major
+// in shared memory (stride ALD) from the warp's first row `a`, MI m16 row
+// tiles; B k-major (stride BLD) from the warp's first lane `b`, NI n8 lane
+// tiles of TB converted by `up`.  SPLIT_B: three products (float32 B), else
+// two (B exact in TF32).  Thread (g, t) holds acc rows i*16 + g (+8), lanes
+// j*8 + 2t (+1).
+template <int MI, int NI, int TK, int ALD, int BLD, bool SPLIT_B, typename TB,
+          typename Up>
+__device__ __forceinline__ void warp_stage(float (&acc)[MI][NI][4],
+                                           const float* a, const TB* b, int g,
+                                           int t, Up up) {
+#pragma unroll
+  for (int kk = 0; kk < TK; kk += 8) {
+    uint32_t bh[NI][2], bl[NI][2];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const TB* p = b + (kk + t) * BLD + j * 8 + g;
+      const float v0 = up(p[0]), v1 = up(p[4 * BLD]);
+      if constexpr (SPLIT_B) {
+        split(v0, bh[j][0], bl[j][0]);
+        split(v1, bh[j][1], bl[j][1]);
+      } else {                          // exact in TF32
+        bh[j][0] = __float_as_uint(v0);
+        bh[j][1] = __float_as_uint(v1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const float* q = a + (i * 16 + g) * ALD + kk + t;
+      uint32_t ah[4], al[4];
+      split(q[0], ah[0], al[0]);
+      split(q[8 * ALD], ah[1], al[1]);
+      split(q[4], ah[2], al[2]);
+      split(q[8 * ALD + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        if constexpr (SPLIT_B)
+          mma3(acc[i][j], ah, al, bh[j], bl[j]);
+        else
+          mma2(acc[i][j], ah, al, bh[j]);
+      }
+    }
+  }
 }
 
 }  // namespace tf32x3

@@ -155,7 +155,8 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "fused_filter_mlp",
                                     "fused_filter_mlp_bf16",
                                     "fused_filter_mlp_int8", "box_lb",
-                                    "filter_mlp", "replay"}
+                                    "filter_mlp", "replay", "train_forward",
+                                    "train_backward_sgd"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -248,7 +249,9 @@ def test_new_modules_are_checked():
     modules."""
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in
              p.parents}
-    for mod in ("analysis/roofline.py", "bench/filters_bench.py"):
+    for mod in ("analysis/roofline.py", "bench/filters_bench.py",
+                "kernels/filter_train/kernel.py",
+                "kernels/filter_train/ref.py", "data/series.py"):
         assert mod in names
 
 

@@ -77,12 +77,18 @@ def _series_and_queries(n: int, n_queries: int, m: int = 256):
 def test_chip_limits_are_unchanged():
     """The rehearsal below uses chip_smoke.py's limits; they are the first
     port's float32 limits for every kernel that does arithmetic.  The
-    cascade replay only compares and selects, so it is held bitwise."""
+    cascade replay only compares and selects, so it is held bitwise.  The
+    training kernels' limits (``test_torch_filter_train.py``): dpred and
+    the updated velocities within 2e-5 of their own largest value, with no
+    absolute term (the parameters are held bitwise to their own update)."""
     limits = _chip_limits()
     assert set(limits) == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
-                           "box_lb", "filter_mlp", "replay"}
+                           "box_lb", "filter_mlp", "replay", "train_forward",
+                           "train_backward_sgd"}
     assert limits.pop("replay") == (0.0, 0.0)
+    assert limits.pop("train_forward") == (0.0, 2e-5)
+    assert limits.pop("train_backward_sgd") == (0.0, 2e-5)
     assert set(limits.values()) == {(1e-4, 1e-5)}
 
 
@@ -352,7 +358,8 @@ def test_chip_smoke_tensor_core_bound():
     assert smoke._bound("slab_l2", (qs, ss))[1] == "operations"
     assert {name for name, (_, passes) in smoke.DESIGN.items() if passes} \
         == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
-            "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "filter_mlp"}
+            "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "filter_mlp",
+            "train_forward", "train_backward_sgd"}
     assert set(smoke.DESIGN) == set(smoke.KERNELS)
 
 
