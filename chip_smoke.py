@@ -15,14 +15,18 @@
    batch; asserts that exact search equals a brute-force scan over the
    pairwise kernel for 64 queries, and that every kernel of the path was
    launched (the launch counters are zeroed just before the build and read
-   just after the last search).  The cascade replay of every batch and of
+   just after the last search).  The probe and the candidate pass of every
+   batch under the default pass are one launch each of the candidate-pass
+   kernel (``leaf_topk``); the cascade replay of every batch and of
    the calibration runs as one launch of the replay kernel; every training
    step of every build is one launch each of the two training kernels and
    every validation pass one of ``filter_mlp`` (asserted from the counters:
    no step runs autograd).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
-   replay timed alone on the summaries the engine hands it), and profiles
-   it for the device's busy time, launches and idle share; breaks the
+   candidate pass and the replay timed alone on the inputs the engine hands
+   them), and profiles it for the device's busy time, launches and idle
+   share, then the candidate pass alone (asserted: one ``leaf_topk_kernel``
+   launch and nothing else); breaks the
    build's training-data collection (``t_collect``) down by step; profiles
    50 steps of filter training (``training_profile``: wall and device-busy
    time, launches and the top device operations per step); holds the
@@ -75,7 +79,9 @@
    ``search_early``'s
    single query, which takes the weight-streaming design and the
    few-query path; ``box_lb`` at every shape the paths gave it, with its
-   launches per shape), and times kernel (through its
+   launches per shape; the candidate pass in both distance forms and on
+   the probe's largest call, its ids equal except at near-ties), and
+   times kernel (through its
    wrapper, and replayed from a CUDA graph without the host-side enqueue),
    plain version and (for the distance kernels) ``torch.cdist``, beside
    the least time the card could take: float32 CUDA-core peak and HBM
@@ -86,7 +92,9 @@
    multiple of a 16-byte vector, R and L % 4 != 0, the iSAX build's last
    slab chunk, box sides at +-inf, d = 5 .. 512, Q = 1 and 33; the replay
    at k = 1, 5, 32, 33 and 257 with ties, +-inf and NaN, shuffled orders,
-   Q = 1 and rows apart), and the filter kernels on their largest call's
+   Q = 1 and rows apart; the candidate pass at kk = 1 .. 257, max leaf 7 ..
+   1000, m = 65 .. 256, Q = 1, empty lists, padding slots and the probe's
+   form), and the filter kernels on their largest call's
    weights at the Q on either side of the stream design's limit, so every
    instance of both designs is held; ``filter_mlp`` is timed beside the
    fused float32 kernel at its own call.  The training kernels are held on
@@ -119,6 +127,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: what the training kernels replace: no Pallas kernel
 TRAIN_SOURCE = ("no Pallas kernel: the reference's jitted SGD step, "
                 "src/repro/core/filter_training.py:274")
+#: what the candidate-pass kernel replaces: no Pallas kernel
+LEAF_TOPK_SOURCE = ("no Pallas kernel: the reference's jitted lax.fori_loop "
+                    "candidate pass, src/repro/core/engine.py:271")
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
     # the limits are a few times the f32 reading, below what a TF32 run of
@@ -169,6 +180,13 @@ KERNELS = {
                            "v_b2: f32 sums over m and the rows in another "
                            "order, relative to max|v| each; w1, b1, w2, b2: "
                            "bitwise p - lr·v of the kernel's own v"),
+    # ids: equal, or where they differ a near-tie (``_leaf_topk_errors``)
+    "leaf_topk": ("src/repro_torch/csrc/leaf_topk.cu", LEAF_TOPK_SOURCE,
+                  (1e-4, 1e-5), "f32 sums over m in another order (the "
+                  "matmul form's |q|^2 = m = 256 for z-normalized series); "
+                  "ids equal except at near-ties, where the kernel's row "
+                  "lies within the limit of the plain version's at that "
+                  "rank"),
 }
 #: relu's derivative jumps at 0: a layer-1 sum within rounding of 0 may land
 #: on the other side in the plain version and move its column of the v_b1
@@ -222,24 +240,37 @@ DESIGN = {
                            "32-row stage, SGD in the epilogue; a batch "
                            "above 128 in 160-row tiles, g_w1 summed in the "
                            "velocity", 3),
+    "leaf_topk": ("one warp a (query, survivor leaf) pair, pairs leaf-major "
+                  "over a grid sized to the SMs, most row reads hitting "
+                  "L2; 32 rows a step read "
+                  "straight from the series with 16-byte loads, a "
+                  "transpose-reduce puts row i on lane i; top-kk in "
+                  "registers for kk <= 32, in the output row beyond", None),
 }
+#: the candidate pass's ``matmul`` form is SIMT float32; its products at
+#: float32 accuracy on the tensor cores would take split TF32's 3 passes
+LEAF_TOPK_SPLIT_PASSES = 3
 #: the redesigned kernels, whose ptxas report must show no spills
 SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
-                 "train_forward_kernel", "train_backward_sgd_kernel")
+                 "train_forward_kernel", "train_backward_sgd_kernel",
+                 "leaf_topk_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
 #: the kernels each path launches
 DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb",
-                  "replay") + BUILD_KERNELS
+                  "replay", "leaf_topk") + BUILD_KERNELS
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
                 "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb",
-                "replay") + BUILD_KERNELS
+                "replay", "leaf_topk") + BUILD_KERNELS
 SEARCH_KERNELS = ("box_lb", "fused_filter_mlp")     # early and grouped
-GROUPED_KERNELS = SEARCH_KERNELS + ("replay",)
+GROUPED_KERNELS = SEARCH_KERNELS + ("replay", "leaf_topk")
 SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
                  "fused_filter_mlp_int8")
+#: the eager candidate pass's device kernels (the gather of the survivor
+#: slabs, the GEMV, the sort of each leaf's rows), which the kernel replaced
+EAGER_PASS_KERNELS = ("vectorized_gather_kernel", "gemv", "radixSortKVInPlace")
 PAYLOADS = ("float32", "bfloat16", "int8")
 TARGETS = ("exact", "0.99", "0.95", "per-query")
 
@@ -260,9 +291,11 @@ def _counter_tables():
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
     from repro_torch.kernels.replay import kernel as replay_kernel
     return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
-            replay_kernel.LAUNCHES, train_kernel.LAUNCHES)
+            replay_kernel.LAUNCHES, train_kernel.LAUNCHES,
+            leaf_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -277,9 +310,13 @@ def _zero_counters() -> None:
 
 def _call_size(name: str, args, out) -> int:
     """A call's size: output elements; for the replay, rows x positions x
-    k (so a batch's k = 5 call outranks its k = 1 calls)."""
+    k (so a batch's k = 5 call outranks its k = 1 calls); for the candidate
+    pass, list slots x kk (from shapes: no sync on the path, so of equal
+    shapes the first, a k = 5 exact batch, is kept)."""
     if name.startswith("replay"):
         return args[2].numel() * args[5]
+    if name.startswith("leaf_topk"):
+        return args[4].numel() * args[6]
     return out.numel()
 
 
@@ -291,8 +328,9 @@ def capture_largest_inputs(captured: dict):
     ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
     (count and last arguments, under ``box_lb@shapes``); for the replay
     the largest call made by calibration apart (``replay@calibration``,
-    the calls inside ``conformal.simulate_search``).  The training kernels'
-    calls all have one size per build; of the largest build's, the
+    the calls inside ``conformal.simulate_search``); for the candidate pass
+    the probe's calls apart (``leaf_topk@probe``, rows by slot).  The
+    training kernels' calls all have one size per build; of the largest build's, the
     ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
     it was given cloned (later steps update them in place).  The wrappers
     themselves, and their launch counts, are unchanged."""
@@ -301,6 +339,7 @@ def capture_largest_inputs(captured: dict):
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
     from repro_torch.kernels.replay import kernel as replay_kernel
     in_calibration = []
     targets = [(l2_kernel, "pairwise_l2_cuda", lambda a: "pairwise_l2"),
@@ -311,7 +350,9 @@ def capture_largest_inputs(captured: dict):
                (box_kernel, "box_lb_cuda", lambda a: "box_lb"),
                (replay_kernel, "replay_cascade_cuda",
                 lambda a: "replay@calibration" if in_calibration
-                else "replay")]
+                else "replay"),
+               (leaf_kernel, "leaf_topk_cuda",
+                lambda a: "leaf_topk" if a[11] else "leaf_topk@probe")]
     saved = [(conformal, "simulate_search", conformal.simulate_search)]
 
     def simulate_search(*args, _fn=conformal.simulate_search, **kw):
@@ -448,6 +489,17 @@ def _check_build_launches(launches: dict, lfi, label: str,
         f"{label}training launches {got}, expected {want}"
 
 
+def _host_marks(device) -> tuple:
+    """(device memory segments the caching allocator has taken from the
+    driver so far, the host's garbage collections so far): two costs a
+    batch's wall can pay besides its work."""
+    import gc
+    import torch
+    segs = (torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            if torch.device(device).type == "cuda" else 0)
+    return segs, sum(g["collections"] for g in gc.get_stats())
+
+
 def _search_line(prefix: str, r, exact, wall: float, n_queries: int) -> str:
     return (f"{prefix}: pruning={r.pruning_ratio.mean():.4f} "
             f"searched={r.searched.mean():.1f}/{r.n_leaves} "
@@ -545,19 +597,30 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
         _sync(device)
         _build_lines("", lfi, time.perf_counter() - t0, on_card)
 
-        results = {}
+        results, marks = {}, {}
+        t0 = time.perf_counter()
         lfi.search(queries, k=1, quality_target=None, device=device)  # warm
+        _sync(device)
+        warm = time.perf_counter() - t0
         for impl in (None, "pairwise"):
             for k in (1, 5):
                 for name, target in targets.items():
                     _sync(device)
+                    before = _host_marks(device)
                     t0 = time.perf_counter()
                     r = lfi.search(queries, k=k, quality_target=target,
                                    device=device, dist_impl=impl)
                     _sync(device)
                     wall = time.perf_counter() - t0
                     results[(impl or "default", k, name)] = (r, wall)
+                    marks[(impl or "default", k, name)] = tuple(
+                        b - a for a, b in zip(before, _host_marks(device)))
     launches = _launch_counters()
+    log(f"the warm-up batch (default, k=1, exact) {warm * 1e3:.1f} ms; new "
+        "allocator segments (cudaMalloc) and garbage collections in each "
+        "timed batch: " + ", ".join(
+            f"{impl} k={k} {name} +{seg}/+{gcs}"
+            for (impl, k, name), (seg, gcs) in marks.items()))
 
     for (impl, k, name), (r, wall) in results.items():
         exact = results[(impl, k, "exact")][0]
@@ -614,8 +677,9 @@ def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
                          r, results["exact"][0], wall, n_queries))
     _brute_force_check(lfi, queries, [results["exact"][0]], n_queries,
                        f"dstree d={2 * n_segments} ")
-    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay")
-                    + BUILD_KERNELS, f"DSTree d={2 * n_segments}", on_card)
+    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay",
+                               "leaf_topk") + BUILD_KERNELS,
+                    f"DSTree d={2 * n_segments}", on_card)
     _check_build_launches(launches, lfi, f"dstree d={2 * n_segments} ",
                           on_card)
     return {"launches": launches}
@@ -879,16 +943,20 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     offsets = lfi.tuner.offsets(target)
     d_F = search.predictions_for_all_leaves(idx, lfi.filter_params,
                                             lfi.leaf_ids, q, offsets)
-    # the replay alone, on the summaries the engine hands it for this batch
+    # the replay and the candidate pass alone, on the inputs the engine
+    # hands them for this batch (the pass: its survivors, not the probe)
     Q, L = d_lb.shape
-    replay_args = []
-    run_replay = engine.replay_cascade
+    replay_args, pass_args = [], []
+    run_replay, run_pass = engine.replay_cascade, engine._bucket_leaf_topk
     engine.replay_cascade = lambda *a: replay_args.append(a) or run_replay(*a)
+    engine._bucket_leaf_topk = \
+        lambda *a: (a[11] and pass_args.append(a)) or run_pass(*a)
     try:
         engine.run_cascade(idx.series, idx.leaf_start, idx.leaf_size, q, d_lb,
                            d_F, k=k, max_leaf=idx.max_leaf_size)
     finally:
         engine.replay_cascade = run_replay
+        engine._bucket_leaf_topk = run_pass
     layers = {
         "search": lambda: lfi.search(queries, k=k, quality_target=target,
                                      device=dev),
@@ -899,6 +967,7 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
             idx.series, idx.leaf_start, idx.leaf_size, q, d_lb, d_F, k=k,
             max_leaf=idx.max_leaf_size),
         "replay": lambda: engine.replay_cascade(*replay_args[0]),
+        "candidate pass": lambda: engine._bucket_leaf_topk(*pass_args[0]),
     }
     times: dict = {name: [] for name in layers}
     for _ in range(reps):
@@ -915,7 +984,9 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
         f"{ms['lower_bounds']:.2f} + filter predictions "
         f"{ms['predictions']:.2f} + engine {ms['engine']:.1f} [runs "
         f"{', '.join(f'{t:.0f}' for t in times['engine'])}] (of which the "
-        f"cascade replay over L={L} positions {ms['replay']:.1f}) + rest")
+        f"candidate pass over {int(pass_args[0][5].sum())} (query, leaf) "
+        f"pairs {ms['candidate pass']:.2f} and the cascade replay over L={L} "
+        f"positions {ms['replay']:.2f}) + rest")
 
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
@@ -925,28 +996,61 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
         lfi.search(queries, k=k, quality_target=target, device=dev)
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name: dict = {}
-    for e in kernels:
-        short = _kernel_name(e.name)
-        by_name[short] = by_name.get(short, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kernels, by_name = _device_kernels(prof)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     if kernels:
         log(f"{label}profiled search: wall {wall:.1f} ms under the profiler, "
             f"{len(kernels)} kernel launches, device busy {busy:.1f} ms: "
             f"idle share {1 - busy / wall:.3f} of the profiled batch, "
             f"{1 - busy / ms['search']:.3f} of the unprofiled median; top "
-            f"kernels (ms): " + "; ".join(f"{name} {t:.2f}"
-                                          for name, t in top))
+            f"kernels (ms, launches): " + "; ".join(
+                f"{name} {t:.2f} ({n})" for name, (t, n) in top))
     else:
         log(f"{label}profiled search: the profiler recorded no kernel events; "
             "device busy time not measured")
+    # the candidate pass alone, twice: one launch of its kernel each (the
+    # counter and, where the profiler recorded the device, its events),
+    # beside the sort of its pair order, and none of the gathers, GEMVs and
+    # row sorts the pass ran as before the kernel
+    _sync(dev)
+    counters = _launch_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            engine._bucket_leaf_topk(*pass_args[0])
+        _sync(dev)
+    _, alone = _device_kernels(prof)
+    launched = {n: c - counters[n] for n, c in _launch_counters().items()
+                if c != counters[n]}
+    log(f"{label}candidate pass alone, twice: launches by counter "
+        f"{json.dumps(launched)}; profiled (ms, launches) "
+        + (json.dumps({n: [round(t, 4), c] for n, (t, c) in alone.items()})
+           if alone else "no kernel events recorded"))
+    if torch.device(dev).type == "cuda":
+        assert launched == {"leaf_topk": 2}, launched
+        assert not alone or (
+            alone.get("leaf_topk_kernel", (0.0, 0))[1] == 2
+            and not any(bad in n for n in alone
+                        for bad in EAGER_PASS_KERNELS)), \
+            f"the candidate pass launched {alone}"
     return {**ms, "profiled_wall_ms": wall,
             "device_busy_ms": busy if kernels else None,
-            "kernel_launches": len(kernels)}
+            "kernel_launches": len(kernels),
+            "pass_kernels": {n: c for n, (_, c) in alone.items()}}
+
+
+def _device_kernels(prof) -> tuple:
+    """A profile's device kernel events and, by short name, (ms, launches)."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(_kernel_name(e.name), (0.0, 0))
+        by_name[_kernel_name(e.name)] = (t + e.time_range.elapsed_us() / 1e3,
+                                         n + 1)
+    return kernels, by_name
 
 
 #: the functions ``collect_training_data`` reaches, timed by
@@ -1445,6 +1549,8 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         nbytes = 4 * (Q * d + 2 * L * d + Q * L)
     elif name == "replay":
         return _replay_bound(args)
+    elif name == "leaf_topk":
+        return _leaf_topk_bound(args, passes=passes)
     elif name in ("train_forward", "train_backward_sgd"):
         return _train_bound(name, args, passes)
     elif name == "filter_mlp":           # raw z
@@ -1510,6 +1616,128 @@ def _replay_bound(args) -> tuple:
     return nbytes / roofline.H100.hbm_bw * 1e3, "bytes"
 
 
+def _leaf_topk_work(args) -> tuple:
+    """(pairs, rows the pairs read, distinct rows) of a candidate-pass call:
+    this run's survivors (slots below their query's count, leaf id < L)."""
+    import torch
+    _, leaf_start, leaf_size, _, leaves, counts = args[:6]
+    L = leaf_start.shape[0]
+    slot = torch.arange(leaves.shape[1], device=leaves.device)
+    lf = leaves[(slot < counts[:, None]) & (leaves >= 0) & (leaves < L)]
+    return (lf.numel(), int(leaf_size[lf].sum()),
+            int(leaf_size[lf.unique()].sum()))
+
+
+def _leaf_topk_bound(args, per_pair: bool = False,
+                     passes: int | None = None) -> tuple:
+    """The candidate pass's bound for this run's survivors.  Operations: q·s
+    (2m) for every row of every pair, and |s|² (2m) once a distinct row for
+    ``matmul``; (s − q)² summed (3m) a row of every pair for ``direct``;
+    at the float32 CUDA-core peak, or, given ``passes`` (the ``matmul``
+    form, whose products a tensor-core design would run), ``passes`` times
+    them at the TF32 tensor-core peak (3: split TF32, float32 accuracy).
+    Bytes: the queries, the survivor lists and counts, the leaf table and
+    the pairs' kk outputs, and the rows: each distinct row once (a leaf's
+    rows read once for every query that keeps it), or, ``per_pair``, every
+    pair's rows from HBM (the design that reads them per pair)."""
+    from repro_torch.analysis import roofline
+    _, leaf_start, _, queries, leaves = args[:5]
+    kk, impl = args[6], args[8]
+    Q, m = queries.shape
+    pairs, pair_rows, distinct = _leaf_topk_work(args)
+    flops = (2 * m * (pair_rows + distinct) if impl == "matmul"
+             else 3 * m * pair_rows)
+    nbytes = (4 * m * (pair_rows if per_pair else distinct) + 4 * Q * m
+              + 8 * leaves.numel() + 8 * Q + 16 * leaf_start.shape[0]
+              + 12 * kk * pairs)
+    t_ops = (flops / roofline.H100.peak_flops if passes is None
+             else passes * flops / roofline.H100.tf32_flops)
+    t_bytes = nbytes / roofline.H100.hbm_bw
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _leaf_topk_fresh(args, impl: str | None = None) -> tuple:
+    """A candidate-pass call's arguments with new output rows (+inf/−1)
+    and, given, another distance form."""
+    import torch
+    out = list(args)
+    out[8] = impl or args[8]
+    out[9] = torch.full_like(args[9], math.inf)
+    out[10] = torch.full_like(args[10], -1)
+    return tuple(out)
+
+
+def _leaf_topk_errors(args, got, want) -> dict:
+    """A candidate-pass call's kernel outputs ``got`` against the plain
+    version's ``want`` (each (out_d, out_i)): the distances within the
+    limit (``max_abs_err`` over the finite ones, ``tolerance`` = atol +
+    rtol x their max|plain|), +inf at the same places with id −1 there, no
+    row twice in one output row, and the ids equal except at near-ties:
+    where they differ (``id_diff`` places), the kernel's row must belong to
+    the pair's leaf and its plain-form distance (``gathered_leaf_l2``) lie
+    within the limit of the plain version's at that rank (``near_ties``
+    counts those that do)."""
+    import torch
+    from repro_torch.kernels.l2_scan import ops as l2_ops
+    series, leaf_start, leaf_size, queries, leaves = args[:5]
+    impl, scatter = args[8], args[11]
+    atol, rtol = KERNELS["leaf_topk"][2]
+    (gd, gi), (wd, wi) = got, want
+    fin = torch.isfinite(wd)
+    top = wd[fin].abs().max().item() if fin.any() else 0.0
+    tol = atol + rtol * top
+    err = (gd[fin] - wd[fin]).abs().max().item() if fin.any() else 0.0
+    same_inf = bool(torch.equal(fin, torch.isfinite(gd)))
+    empty_ids = bool(torch.equal(gi == -1, ~torch.isfinite(gd)))
+    diff = gi != wi
+    at = diff.nonzero()                            # (n, 3): query, row, rank
+    rows = gi[diff]
+    L = leaf_start.shape[0]
+    leaf = at[:, 1] if scatter else leaves[at[:, 0], at[:, 1]]
+    safe = leaf.clamp(0, max(L - 1, 0))
+    start = leaf_start[safe]
+    inside = ((rows >= start) & (rows < start + leaf_size[safe])
+              & (leaf >= 0) & (leaf < L))
+    d = l2_ops.gathered_leaf_l2(queries[at[:, 0]],
+                                series[rows.clamp(min=0)][:, None, None],
+                                impl)[:, 0, 0]
+    near = inside & ((d - wd[diff]).abs() <= tol)
+    srt = torch.sort(gi, dim=-1).values
+    dups = int(((srt[..., 1:] == srt[..., :-1]) & (srt[..., 1:] >= 0)).sum())
+    return {"max_abs_err": err, "tolerance": tol, "same_inf": same_inf,
+            "empty_ids": empty_ids, "id_diff": int(diff.sum()),
+            "near_ties": int(near.sum()), "duplicates": dups,
+            "ok": bool(same_inf and empty_ids and err <= tol and dups == 0
+                       and bool(near.all()))}
+
+
+def _hold_leaf_topk(args, label: str) -> dict:
+    """One candidate-pass call, kernel against plain version on fresh
+    output rows each, asserted within ``_leaf_topk_errors``'s limits."""
+    import torch
+    kernel_fn, plain_fn, _ = _kernel_tables()
+    got = kernel_fn["leaf_topk"](*_leaf_topk_fresh(args))
+    torch.cuda.synchronize()
+    want = plain_fn["leaf_topk"](*_leaf_topk_fresh(args))
+    torch.cuda.synchronize()
+    e = _leaf_topk_errors(args, got, want)
+    pairs, pair_rows, _ = _leaf_topk_work(args)
+    shapes = (f"{tuple(args[3].shape)} queries x {tuple(args[4].shape)} "
+              f"lists, L={args[1].shape[0]}, max_leaf={args[7]}, "
+              f"kk={args[6]}, {args[8]}, {pairs} pairs, {pair_rows} rows")
+    log(f"kernel {label} at {shapes}: max_abs_err={e['max_abs_err']:.3g} "
+        f"(tolerance {e['tolerance']:.3g} absolute = 1e-4 + 1e-5 x "
+        f"max|plain|); +inf where plain {e['same_inf']}, id -1 there "
+        f"{e['empty_ids']}; ids differ at {e['id_diff']} of "
+        f"{args[9].numel()} places, {e['near_ties']} of them near-ties; "
+        f"{e['duplicates']} repeated rows")
+    assert e["ok"], f"{label} disagrees: {e}"
+    return {"shapes": shapes, "max_abs_err": e["max_abs_err"],
+            "tolerance": e["tolerance"], "id_diff": e["id_diff"],
+            "near_ties": e["near_ties"]}
+
+
 def _plain_mlp(q, w1, b1, w2, b2, ym, ys, off, s1=None, s2=None):
     from repro_torch.kernels.filter_mlp import ref as mlp_ref
     return mlp_ref.filter_predict_destd(w1, b1, w2, b2, ym, ys, q, off, s1,
@@ -1531,6 +1759,8 @@ def _kernel_tables():
     from repro_torch.kernels.filter_train import ref as train_ref
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.l2_scan import ref as l2_ref
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
+    from repro_torch.kernels.leaf_topk import ref as leaf_ref
     from repro_torch.kernels.replay import kernel as replay_kernel
     from repro_torch.kernels.replay import ref as replay_ref
 
@@ -1543,7 +1773,8 @@ def _kernel_tables():
                  "filter_mlp": mlp_kernel.filter_mlp_cuda,
                  "replay": replay_kernel.replay_cascade_cuda,
                  "train_forward": train_kernel.train_forward_cuda,
-                 "train_backward_sgd": train_kernel.train_backward_sgd_cuda}
+                 "train_backward_sgd": train_kernel.train_backward_sgd_cuda,
+                 "leaf_topk": leaf_kernel.leaf_topk_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
@@ -1553,7 +1784,8 @@ def _kernel_tables():
                 "filter_mlp": _plain_raw_mlp,
                 "replay": replay_ref.replay_cascade,
                 "train_forward": train_ref.train_forward,
-                "train_backward_sgd": train_ref.train_backward_sgd}
+                "train_backward_sgd": train_ref.train_backward_sgd,
+                "leaf_topk": leaf_ref.leaf_topk}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
 
@@ -1587,7 +1819,10 @@ def _hold_replay(args, label: str) -> dict:
 
 def _scratch(name: str, args) -> tuple:
     """``args`` with the state ``train_backward_sgd`` updates in place (its
-    first 8 arguments) cloned; other calls' arguments as they are."""
+    first 8 arguments) cloned, or the candidate pass's output rows new;
+    other calls' arguments as they are."""
+    if name == "leaf_topk":
+        return _leaf_topk_fresh(args)
     if name != "train_backward_sgd":
         return tuple(args)
     return tuple(a.clone() for a in args[:8]) + tuple(args[8:])
@@ -1683,6 +1918,8 @@ def _hold(name: str, args, label: str) -> dict:
     import torch
     if name == "replay":
         return _hold_replay(args, label)
+    if name == "leaf_topk":
+        return _hold_leaf_topk(args, label)
     _, _, (atol, rtol), why = KERNELS[name]
     kernel_fn, plain_fn, _ = _kernel_tables()
     got = _outputs(name, kernel_fn[name], args)
@@ -1716,7 +1953,7 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     import torch
     held = _hold(name, args, label)
     kernel_fn, plain_fn, library_fn = _kernel_tables()
-    if name not in ("box_lb", "replay") and label == name:  # no matmul
+    if name not in ("box_lb", "replay", "leaf_topk") and label == name:
         # what the same check reads for a TF32 run of the plain version
         want = _outputs(name, plain_fn[name], args)
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -1734,22 +1971,33 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     args = _scratch(name, args)
     ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
     graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
-    # the plain replay is a host loop of ~20 launches a position
+    # the plain replay is a host loop of ~20 launches a position, the plain
+    # candidate pass a bucket loop of gathers and sorts (~0.2-0.5 s a batch)
     plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a),
-                        reps=2 if name == "replay" else 20)
+                        reps=2 if name in ("replay", "leaf_topk") else 20)
     lib = library_fn.get(name)
     library_ms = (None if lib is None
                   else _time_ms(lambda f=lib, a=args: f(*a)))
     design, passes = DESIGN[name]
+    whose = "split design's"
+    if name == "leaf_topk" and args[8] == "matmul":
+        # a SIMT kernel, but its products could run on the tensor cores:
+        # the bound a split-TF32 design of the same form would have
+        passes, whose = LEAF_TOPK_SPLIT_PASSES, "a split-TF32 design's"
     bound_ms, bound_by = _bound(name, args)
     split_ms, split_by, tf32_ms, tf32_by = (
         (None,) * 4 if passes is None
         else _bound(name, args, passes) + _bound(name, args, 1))
     tc = ("" if passes is None else
-          f", split design's bound ({passes} TF32 passes) {split_ms:.4f} ms "
+          f", {whose} bound ({passes} TF32 passes) {split_ms:.4f} ms "
           f"by {split_by}, one-pass TF32 bound {tf32_ms:.4f} ms by {tf32_by}")
     library = ("none (no single PyTorch call)" if library_ms is None
                else f"{library_ms:.4f} ms")
+    pair_ms, pair_by = ((None, None) if name != "leaf_topk"
+                        else _leaf_topk_bound(args, per_pair=True))
+    if pair_ms is not None:
+        tc += (f", every pair's rows from HBM {pair_ms:.4f} ms by "
+               f"{pair_by}")
     log(f"kernel {label} [{design}]: {ms:.4f} ms through the wrapper, "
         f"{graph_ms:.4f} ms replayed from a CUDA graph (no host-side "
         f"enqueue), plain {plain_ms:.4f} ms, library {library}, "
@@ -1759,7 +2007,7 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "split_bound_ms": split_ms, "split_bound_by": split_by,
             "tf32_bound_ms": tf32_ms, "tf32_bound_by": tf32_by,
-            "library_ms": library_ms}
+            "pair_bound_ms": pair_ms, "library_ms": library_ms}
 
 
 #: (Q, B, m) of pairwise_l2's ragged held calls: partial tiles, odd B and
@@ -1788,6 +2036,18 @@ RAGGED_BOX = ((1, 4093, 16), (33, 1001, 8), (33, 130, 5), (7, 517, 64),
 RAGGED_REPLAY = ((1, 4093, 5, 5, "sorted"), (37, 1000, 1, 1, "shuffled"),
                  (37, 700, 5, 32, "sorted"), (20, 600, 40, 33, "shuffled"),
                  (9, 500, 7, 257, "sorted"), (64, 129, 3, 5, "shuffled"))
+
+#: (Q, L, max_leaf, m, kk, list width, scatter) of the candidate pass's: kk
+#: = 1, 5, 32 (the last in registers), 33 and 257 (in the output row), max
+#: leaf 7, 245, 256 and 1000 (each draw holds a leaf of size 1 and one of
+#: max_leaf), m = 65 (one float a lane), 96 (a partial 16-byte block), 128
+#: and 256, Q = 1, and the probe's form (one slot a query, rows by slot)
+RAGGED_LEAF_TOPK = ((1, 300, 245, 256, 5, 300, True),
+                    (37, 60, 7, 65, 1, 60, True),
+                    (20, 90, 256, 96, 32, 90, True),
+                    (9, 40, 1000, 128, 33, 40, True),
+                    (5, 30, 1000, 65, 257, 12, True),
+                    (64, 50, 245, 128, 5, 1, False))
 
 
 #: (F, m, h, batch) of the training kernels' held calls: one filter and
@@ -1840,6 +2100,54 @@ def train_calls(device: str = "cuda") -> dict:
         calls["train_backward_sgd"].append(
             params + vels + (xg, xl, ig, il, train_ref.train_forward(*fwd),
                              1e-2, 0.9))
+    return calls
+
+
+def leaf_topk_calls(device: str = "cuda") -> list:
+    """The candidate pass's held calls (numpy seed 4), at
+    ``RAGGED_LEAF_TOPK``, in the engine's ``matmul`` form (``check_kernels``
+    holds each in ``direct`` too): z-normalized random-walk rows, some
+    repeated within their leaf (exact ties, which must go to the lower
+    row), queries near rows (noise 0.2); each query a random survivor list
+    with padding (id L) inside its count and, for odd queries, real leaf
+    ids past it (which the pass must skip), one query's count 0 and one's
+    the whole list; outputs +inf/−1."""
+    import torch
+    rng = np.random.default_rng(4)
+    calls = []
+    for Q, L, max_leaf, m, kk, C, scatter in RAGGED_LEAF_TOPK:
+        sizes = rng.integers(1, max_leaf + 1, L)
+        sizes[0], sizes[-1] = 1, max_leaf
+        start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        n = int(sizes.sum())
+        x = rng.standard_normal((n + max_leaf, m)).cumsum(-1)
+        x = (x - x.mean(-1, keepdims=True)) / x.std(-1, keepdims=True)
+        for leaf in np.flatnonzero(sizes > 2)[:L // 3]:
+            r = start[leaf] + rng.integers(0, sizes[leaf] - 1)
+            x[r + 1] = x[r]
+        q = x[rng.integers(0, n, Q)] + 0.2 * rng.standard_normal((Q, m))
+        leaves = np.full((Q, C), L, np.int64)
+        counts = rng.integers(0, C + 1, Q)
+        counts[0] = C
+        if Q > 1:
+            counts[1] = 0
+        for i in range(Q):
+            leaves[i, :counts[i]] = rng.choice(L, counts[i], replace=False)
+            if counts[i] > 2:
+                leaves[i, rng.integers(0, counts[i])] = L
+            if i % 2:
+                leaves[i, counts[i]:] = rng.integers(0, L, C - counts[i])
+        rows = L + 1 if scatter else C
+
+        def t(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                                   device=device)
+        calls.append((t(x, np.float32), t(start, np.int64),
+                      t(sizes, np.int64), t(q, np.float32), t(leaves),
+                      t(counts, np.int64), kk, max_leaf, "matmul",
+                      torch.full((Q, rows, kk), math.inf, device=device),
+                      torch.full((Q, rows, kk), -1, dtype=torch.int64,
+                                 device=device), scatter))
     return calls
 
 
@@ -1967,10 +2275,15 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     the filter kernels on their largest call's weights at the Q on either
     side of the stream design's limit, ``filter_mlp`` beside the fused
     float32 kernel at its own call, the replay also on calibration's
-    largest call; the redesigned kernels also at ragged shapes
+    largest call, the candidate pass also in ``direct`` form and on the
+    probe's largest call; the redesigned kernels also at ragged shapes
     (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.leaf_topk import ref as leaf_ref
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls()}
+    ragged["leaf_topk"] = [_leaf_topk_fresh(c, impl)
+                           for c in leaf_topk_calls()
+                           for impl in leaf_ref.IMPLS]
     ragged["filter_mlp"] = [c[:5] for c in ragged["fused_filter_mlp"]]
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():
@@ -2013,6 +2326,20 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                               "call)", power)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
+        if name == "leaf_topk":
+            keep = ("max_abs_err", "id_diff", "near_ties", "ms", "graph_ms",
+                    "plain_ms", "bound_ms", "bound_by", "split_bound_ms",
+                    "pair_bound_ms")
+            row.update(pair_bound_ms=res["pair_bound_ms"],
+                       id_diff=res["id_diff"], near_ties=res["near_ties"])
+            direct = _check_call(name, _leaf_topk_fresh(args, "direct"),
+                                 "leaf_topk (direct)", power)
+            row["direct"] = {k: direct[k] for k in keep}
+            if "leaf_topk@probe" in captured:
+                probe = _check_call(name, captured["leaf_topk@probe"][1],
+                                    "leaf_topk (the probe's largest call)",
+                                    power)
+                row["probe_call"] = {k: probe[k] for k in keep}
         if held:
             row["held_calls"] = []
             for call in held:
@@ -2061,7 +2388,7 @@ def main() -> int:
     power = card.split(",")[-1].strip()
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
-                         "filter_train"])
+                         "filter_train", "leaf_topk"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
 

@@ -7,13 +7,22 @@ Two strategies over identical semantics, as in the reference:
   distances are computed and masked.
 * ``strategy="compact"`` (the default) — probe each query's best-lb leaf to
   seed a best-so-far ``bsf0``, keep only leaves with ``d_lb ≤ bsf0`` and
-  ``d_F ≤ bsf0`` (a superset of what the cascade scans), score the
-  survivors in one batched candidate pass per survivor-count bucket, keep
-  each leaf's k smallest distances, and replay the exact cascade over those
-  summaries (:func:`replay_cascade`).  Under ``dist_impl="direct"`` the two
-  strategies agree bitwise; ``matmul`` and ``pairwise`` (each bucket's
-  survivor union scored all-pairs by the pairwise CUDA kernel) agree to
+  ``d_F ≤ bsf0`` (a superset of what the cascade scans), score every
+  query's survivors in one candidate pass, keep each leaf's k smallest
+  distances, and replay the exact cascade over those summaries
+  (:func:`replay_cascade`).  Under ``dist_impl="direct"`` the two
+  strategies agree bitwise; ``matmul`` and ``pairwise`` (each survivor-count
+  bucket's union scored all-pairs by the pairwise CUDA kernel) agree to
   float tolerance.
+
+The candidate pass is the reference's jitted ``_bucket_leaf_topk``.  Here
+:func:`_bucket_leaf_topk` takes each query's survivor list (ascending lb)
+and count (:func:`survivor_lists`, the same arguments on both devices) and
+runs on the card as one launch of the hand-written candidate-pass kernel
+(``kernels/leaf_topk``, one warp a (query, leaf) pair, the pairs
+leaf-major, rows read straight from the series), and on the CPU as that
+kernel's plain version, the port's earlier bucketed torch code; the probe
+is the same call with one leaf a query.  The default card path has no host sync before the replay.
 
 The cascade is a ``lax.scan`` over the L visit positions in the reference.
 Here :func:`replay_cascade` runs it on the card as one launch of the
@@ -40,17 +49,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.common import on_cpu
+from ..kernels.common import CHUNK_BYTES, next_pow2, on_cpu, pow2_chunk
 from ..kernels.l2_scan import ops as l2_ops
+from ..kernels.leaf_topk import kernel as leaf_topk_kernel
+from ..kernels.leaf_topk import ref as leaf_topk_ref
 from ..kernels.replay import kernel as replay_kernel
 from ..kernels.replay import ref as replay_ref
 
 _INF = float("inf")
 
-# gathered working set per chunk (bytes of f32 rows); on the card the
-# compact candidate pass takes 1 GiB: its chunk loop, a dozen launches a
-# chunk, made most of a batch's launches at 256 MiB
-_CHUNK_BYTES = 256 << 20
+# the pairwise candidate pass's working set per chunk on the card: its
+# chunk loop, a dozen launches a chunk, made most of a batch's launches at
+# the plain passes' 256 MiB
 _CARD_CANDIDATE_CHUNK_BYTES = 1 << 30
 
 
@@ -62,18 +72,6 @@ class EngineResult:
     n_pruned_lb: torch.Tensor      # (Q,)
     n_pruned_filter: torch.Tensor  # (Q,)
     n_computed: torch.Tensor       # (Q,) leaves distance-computed (≥ n_searched)
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(int(n) - 1, 0).bit_length()
-
-
-def _pow2_chunk(per_leaf_bytes: int, cap: int,
-                budget: int = _CHUNK_BYTES) -> int:
-    """Power-of-two chunk keeping ``chunk · per_leaf_bytes`` near
-    ``budget`` (capped at ``cap``)."""
-    chunk = max(budget // max(per_leaf_bytes, 1), 1)
-    return min(1 << (int(chunk).bit_length() - 1), cap)
 
 
 # ---------------------------------------------------------------------------
@@ -114,28 +112,33 @@ def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
 # ---------------------------------------------------------------------------
 
 
-def _bucket_leaf_topk(series, leaf_start, leaf_size, queries_b, leaf_b, kk,
-                      max_leaf, chunk, dist_impl):
-    """Per-leaf k smallest distances for a bucket of per-query survivor
-    lists.  leaf_b: (Qb, C) leaf ids, invalid slots == L.  Returns
-    (vals (Qb, C, kk), ids (Qb, C, kk)) with +inf/−1 in invalid slots."""
-    Qb, C = leaf_b.shape
-    L = leaf_start.shape[0]
-    dev = queries_b.device
-    row_ids = torch.arange(max_leaf, device=dev)
-    vals_out = torch.empty((Qb, C, kk), device=dev)
-    ids_out = torch.empty((Qb, C, kk), dtype=torch.int64, device=dev)
-    for c0 in range(0, C, chunk):
-        lf = leaf_b[:, c0:c0 + chunk]
-        safe = torch.clamp_max(lf, L - 1)
-        sizes = torch.where(lf < L, leaf_size[safe], 0)
-        rows = leaf_start[safe][..., None] + row_ids             # (Qb, c, R)
-        d = l2_ops.gathered_leaf_l2(queries_b, series[rows], dist_impl)
-        d = torch.where(row_ids < sizes[..., None], d, _INF)
-        vals, ids = l2_ops.leaf_topk(d, rows, kk)
-        vals_out[:, c0:c0 + chunk] = vals
-        ids_out[:, c0:c0 + chunk] = torch.where(torch.isfinite(vals), ids, -1)
-    return vals_out, ids_out
+def _bucket_leaf_topk(series, leaf_start, leaf_size, queries, leaves, counts,
+                      kk, max_leaf, dist_impl, out_d, out_i, scatter):
+    """The candidate pass: query q's survivors are ``leaves[q, :counts[q]]``
+    (leaf id L is padding); each (query, leaf) pair's kk smallest distances
+    and row ids (+inf/−1 past the leaf's size) go to ``out_d``/``out_i``
+    row (q, leaf) when ``scatter``, else row (q, slot).  CUDA tensors go
+    to the candidate-pass kernel in one launch; CPU tensors to its plain
+    version (``kernels/leaf_topk/ref.py``)."""
+    args = (series, leaf_start, leaf_size, queries.contiguous(), leaves,
+            counts, kk, max_leaf, dist_impl, out_d, out_i, scatter)
+    if on_cpu(series, leaf_start, leaf_size, queries, leaves, counts, out_d,
+              out_i):
+        return leaf_topk_ref.leaf_topk(*args)
+    return leaf_topk_kernel.leaf_topk_cuda(*args)
+
+
+def survivor_lists(mask: torch.Tensor, order: torch.Tensor):
+    """The candidate pass's arguments from the survivor mask (Q, L) and the
+    visit order (Q, L): each query's survivor leaves in ascending-lb order,
+    then L (leaves (Q, L) int64), and their counts (Q,) int64."""
+    L = mask.shape[1]
+    mask_ord = torch.gather(mask, 1, order)
+    # survivors first, in ascending-lb order (a stable sort of the flags)
+    sel = torch.argsort((~mask_ord).to(torch.uint8), dim=1, stable=True)
+    leaves = torch.where(torch.gather(mask_ord, 1, sel),
+                         torch.gather(order, 1, sel), L)
+    return leaves, mask.sum(dim=1)
 
 
 def _union_leaf_topk(series, leaf_start, leaf_size, queries_b, leaf_u, kk,
@@ -180,74 +183,74 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
         order.contiguous(), k)
 
 
+def _union_pass(series, leaf_start, leaf_size, queries, leaves, counts, kk,
+                max_leaf, leaf_d, leaf_i):
+    """``dist_impl="pairwise"``: per survivor-count bucket, the union of its
+    queries' survivors scored all-pairs by the pairwise kernel and written
+    to the summaries.  Leaves that are not a query's survivors ride along
+    but are pruned by its replay (their d_lb/d_F exceed its bsf0, and bsf
+    only decreases).  Returns the leaves computed per query (Q,) int32."""
+    Q, m = queries.shape
+    L = leaf_start.shape[0]
+    dev = queries.device
+    budget = (_CARD_CANDIDATE_CHUNK_BYTES if dev.type == "cuda"
+              else CHUNK_BYTES)
+    counts = counts.cpu().numpy()
+    computed = counts.astype(np.int32)
+    for C, qis in sorted(leaf_topk_ref.buckets(counts, L).items()):
+        qidx = torch.as_tensor(qis, device=dev)
+        leaf_np = leaves[qidx, :C].cpu().numpy()
+        uni = np.unique(leaf_np[leaf_np < L])
+        if uni.size == 0:
+            continue
+        computed[qis] = uni.size
+        chunk = pow2_chunk((max_leaf * m + len(qis) * max_leaf) * 4,
+                           next_pow2(uni.size), budget)
+        leaf_u = torch.as_tensor(uni, device=dev)
+        vals, ids = _union_leaf_topk(series, leaf_start, leaf_size,
+                                     queries[qidx], leaf_u, kk, max_leaf,
+                                     chunk)
+        leaf_d[qidx[:, None], leaf_u[None, :]] = vals
+        leaf_i[qidx[:, None], leaf_u[None, :]] = ids
+    return torch.as_tensor(computed, device=dev)
+
+
 def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
                      max_leaf, dist_impl):
-    Q, m = queries.shape
+    Q = queries.shape[0]
     L = leaf_start.shape[0]
     dev = queries.device
     kk = min(k, max_leaf)
     order = torch.argsort(d_lb, dim=1, stable=True)              # (Q, L)
-    budget = (_CARD_CANDIDATE_CHUNK_BYTES if dev.type == "cuda"
-              else _CHUNK_BYTES)
 
     # -- phase 1: probe the best-lb leaf, mask survivors --------------------
     probe_impl = "matmul" if dist_impl == "pairwise" else dist_impl
-    leaf0 = order[:, :1]
-    p_vals, p_ids = _bucket_leaf_topk(series, leaf_start, leaf_size, queries,
-                                      leaf0, kk, max_leaf, 1, probe_impl)
+    leaf0 = order[:, :1].contiguous()
+    p_vals = torch.full((Q, 1, kk), _INF, device=dev)
+    p_ids = torch.full((Q, 1, kk), -1, dtype=torch.int64, device=dev)
+    _bucket_leaf_topk(series, leaf_start, leaf_size, queries, leaf0,
+                      torch.ones(Q, dtype=torch.int64, device=dev), kk,
+                      max_leaf, probe_impl, p_vals, p_ids, False)
     bsf0 = (p_vals[:, 0, k - 1] if k <= kk
             else torch.full((Q,), _INF, device=dev))
     mask = (d_lb <= bsf0[:, None]) & (d_F <= bsf0[:, None])
     ar = torch.arange(Q, device=dev)
     mask[ar, leaf0[:, 0]] = True
 
-    # -- phase 2: bucket queries by survivor count, compact leaf lists ------
-    counts = mask.sum(dim=1).cpu().numpy()
-    computed = counts.astype(np.int32)
-    # leaf row L is a scratch row: invalid slots aim their scatters at it,
+    # -- phase 2: score every query's survivors -----------------------------
+    leaves, counts = survivor_lists(mask, order)
+    # leaf row L is a scratch row: padding slots may aim their writes at it,
     # and it is sliced off before the replay.
     leaf_d = torch.full((Q, L + 1, kk), _INF, device=dev)
     leaf_i = torch.full((Q, L + 1, kk), -1, dtype=torch.int64, device=dev)
-    # survivors first, in ascending-lb order (a stable sort of the flags)
-    mask_ord = torch.gather(mask, 1, order)
-    sel_all = torch.argsort((~mask_ord).to(torch.uint8), dim=1, stable=True)
-
-    buckets: dict[int, list[int]] = {}
-    for qi, c in enumerate(counts):
-        buckets.setdefault(min(_next_pow2(max(int(c), 1)), L), []).append(qi)
-
-    for C, qis in sorted(buckets.items()):
-        qidx = torch.as_tensor(qis, device=dev)
-        sel = sel_all[qidx, :C]                                  # (Qb, C)
-        valid = torch.gather(mask_ord[qidx], 1, sel)
-        leaf = torch.where(valid, torch.gather(order[qidx], 1, sel), L)
-        Qb = len(qis)
-        if dist_impl == "pairwise":
-            # union the bucket's survivors into one shared slab for the
-            # pairwise kernel; leaves that are not a query's survivors ride
-            # along but are pruned by its replay (their d_lb/d_F exceed its
-            # bsf0, and bsf only decreases).
-            leaf_np = leaf.cpu().numpy()
-            uni = np.unique(leaf_np[leaf_np < L])
-            if uni.size == 0:
-                continue
-            computed[qis] = uni.size
-            chunk = _pow2_chunk((max_leaf * m + Qb * max_leaf) * 4,
-                                _next_pow2(uni.size), budget)
-            leaf_u = torch.as_tensor(uni, device=dev)
-            vals, ids = _union_leaf_topk(series, leaf_start, leaf_size,
-                                         queries[qidx], leaf_u, kk, max_leaf,
-                                         chunk)
-            leaf_sc = leaf_u[None, :].expand(Qb, -1)
-        else:
-            chunk = _pow2_chunk(Qb * max_leaf * m * 4, _next_pow2(C),
-                                budget)
-            vals, ids = _bucket_leaf_topk(series, leaf_start, leaf_size,
-                                          queries[qidx], leaf, kk, max_leaf,
-                                          chunk, dist_impl)
-            leaf_sc = leaf
-        leaf_d[qidx[:, None], leaf_sc] = vals
-        leaf_i[qidx[:, None], leaf_sc] = ids
+    if dist_impl == "pairwise":
+        computed = _union_pass(series, leaf_start, leaf_size, queries, leaves,
+                               counts, kk, max_leaf, leaf_d, leaf_i)
+    else:
+        _bucket_leaf_topk(series, leaf_start, leaf_size, queries, leaves,
+                          counts, kk, max_leaf, dist_impl, leaf_d, leaf_i,
+                          True)
+        computed = counts.to(torch.int32)
 
     leaf_d, leaf_i = leaf_d[:, :L], leaf_i[:, :L]        # drop the scratch row
     # reuse the probe's leaf-0 values verbatim (see the module docstring)
@@ -256,7 +259,7 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
 
     # -- phase 3: exact cascade replay over the per-leaf summaries ----------
     out = replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k)
-    return out + (torch.as_tensor(computed, device=dev),)
+    return out + (computed,)
 
 
 def run_cascade(series: torch.Tensor, leaf_start: torch.Tensor,
@@ -305,7 +308,7 @@ def nn_distance_all_leaves(series: torch.Tensor, leaf_start: torch.Tensor,
     L = leaf_start.shape[0]
     dev = queries.device
     dist_impl = dist_impl or l2_ops.default_slab_impl(dev)
-    chunk = _pow2_chunk((Q * max_leaf + max_leaf * m) * 4, _next_pow2(L))
+    chunk = pow2_chunk((Q * max_leaf + max_leaf * m) * 4, next_pow2(L))
     out = torch.empty((Q, L), device=dev)
     for c0 in range(0, L, chunk):
         ids = torch.arange(c0, min(c0 + chunk, L), device=dev)
@@ -326,8 +329,8 @@ def nn_distance_own_leaf(series: torch.Tensor, leaf_start: torch.Tensor,
     F, nq, m = local_queries.shape
     dev = local_queries.device
     dist_impl = dist_impl or l2_ops.default_slab_impl(dev)
-    chunk = _pow2_chunk((nq * max_leaf + max_leaf * m + nq * m) * 4,
-                        _next_pow2(max(F, 1)))
+    chunk = pow2_chunk((nq * max_leaf + max_leaf * m + nq * m) * 4,
+                       next_pow2(max(F, 1)))
     out = torch.empty((F, nq), device=dev)
     for c0 in range(0, F, chunk):
         slabs, _, valid = l2_ops.gather_leaf_slabs(

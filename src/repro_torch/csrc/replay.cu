@@ -47,13 +47,16 @@
 //   * The top-k lives in registers across the lanes for k <= 32 (lane i
 //     holds entry i; an insertion is a ballot and a shuffle), and for larger
 //     k in the row's output buffer (L1/L2-resident; an insertion counts the
-//     entries <= it across the lanes and shifts the tail up 32 at a time).
+//     entries <= it across the lanes and shifts the tail up 32 at a time):
+//     TopK in warp_topk.cuh, shared with the candidate-pass kernel.
 //   ref.py's replay_chunked emulates this walk for the CPU tests.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "warp_topk.cuh"
 
 namespace {
 
@@ -64,92 +67,6 @@ constexpr int STEP = 32 * SUB;
 constexpr int REG_MAX_K = 32;            // top-k in registers up to this k
 constexpr int PRE = 8;                   // leaf slots a candidate preloads
 constexpr unsigned FULL = 0xffffffffu;
-
-template <bool REG>
-struct TopK;
-
-// lane i < k holds entry i
-template <>
-struct TopK<true> {
-  float d = INFINITY;
-  long long id = -1;
-  float bsf = INFINITY;
-  int k, lane;
-
-  __device__ TopK(float*, long long*, int k_, int lane_) : k(k_), lane(lane_) {}
-
-  // v < bsf, so it lands at a position < k
-  __device__ __forceinline__ void insert(float v, long long vi) {
-    const int pos = __popc(__ballot_sync(FULL, lane < k && d <= v));
-    const float up = __shfl_up_sync(FULL, d, 1);
-    const long long up_id = __shfl_up_sync(FULL, id, 1);
-    if (lane > pos) {
-      d = up;
-      id = up_id;
-    }
-    if (lane == pos) {
-      d = v;
-      id = vi;
-    }
-    bsf = __shfl_sync(FULL, d, k - 1);
-  }
-
-  __device__ __forceinline__ void store(float* out_d, long long* out_i) const {
-    if (lane < k) {
-      out_d[lane] = d;
-      out_i[lane] = id;
-    }
-  }
-};
-
-// the row's output buffer, read and written by the warp in turns
-template <>
-struct TopK<false> {
-  float* d;
-  long long* id;
-  float bsf = INFINITY;
-  int k, lane;
-
-  __device__ TopK(float* d_, long long* id_, int k_, int lane_)
-      : d(d_), id(id_), k(k_), lane(lane_) {
-    for (int i = lane; i < k; i += 32) {
-      d[i] = INFINITY;
-      id[i] = -1;
-    }
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ void insert(float v, long long vi) {
-    int below = 0;
-    for (int i = lane; i < k; i += 32) below += d[i] <= v;
-    const int pos = __reduce_add_sync(FULL, below);
-    // entries pos .. k-2 move up one, the top 32 first
-    for (int hi = k - 1; hi > pos; hi -= 32) {
-      const int i = hi - lane;
-      const bool move = i > pos;
-      float x = 0.f;
-      long long xi = 0;
-      if (move) {
-        x = d[i - 1];
-        xi = id[i - 1];
-      }
-      __syncwarp();
-      if (move) {
-        d[i] = x;
-        id[i] = xi;
-      }
-      __syncwarp();
-    }
-    if (lane == 0) {
-      d[pos] = v;
-      id[pos] = vi;
-    }
-    __syncwarp();
-    bsf = d[k - 1];
-  }
-
-  __device__ __forceinline__ void store(float*, long long*) const {}
-};
 
 // a searched leaf's kk <= PRE slots, preloaded by its lane j, into the top-k
 template <bool REG>

@@ -16,6 +16,8 @@
   the ``csrc`` headers it includes, so an edited source or header is
   rebuilt.  Every C entry point returns
   ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+* **Chunking.** The plain versions that gather padded leaf slabs work in
+  power-of-two chunks of about :data:`CHUNK_BYTES` (:func:`pow2_chunk`).
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ _LOCK = threading.Lock()
 
 Device = Union[str, torch.device, None]
 
+#: gathered working set per chunk (bytes of f32 rows) of the slab passes
+CHUNK_BYTES = 256 << 20
+
 
 def resolve_device(device: Device) -> torch.device:
     """``None`` → ``cuda``; a CUDA device without a card raises."""
@@ -58,6 +63,18 @@ def resolve_device(device: Device) -> torch.device:
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (→ the plain version runs)."""
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def pow2_chunk(per_item_bytes: int, cap: int,
+               budget: int = CHUNK_BYTES) -> int:
+    """Power-of-two chunk keeping ``chunk · per_item_bytes`` near
+    ``budget`` (capped at ``cap``)."""
+    chunk = max(budget // max(per_item_bytes, 1), 1)
+    return min(1 << (int(chunk).bit_length() - 1), cap)
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
     """A tensor that does not lie on the CPU goes to the CUDA kernel: on a
     machine without CUDA that raises instead of running the plain version,
     for every kernel and every filter payload."""
+    from repro_torch.core import engine
     from repro_torch.kernels.box_lb import ops as box_ops
     from repro_torch.kernels.filter_mlp import ops as mlp_ops
     from repro_torch.kernels.l2_scan import ops as l2_ops
@@ -132,6 +133,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(RuntimeError):
         mlp_ops.filter_predict_fused(w1.to(torch.int8), v, v.to(torch.int8),
                                      s, s, s, q, None, s, s)
+    # the candidate pass, as the engine dispatches it
+    i64 = dict(dtype=torch.int64, device="meta")
+    with pytest.raises(RuntimeError):
+        engine._bucket_leaf_topk(q, torch.empty(3, **i64),
+                                 torch.empty(3, **i64), q,
+                                 torch.empty((4, 3), **i64),
+                                 torch.empty(4, **i64), 2, 8, "matmul",
+                                 torch.empty((4, 4, 2), device="meta"),
+                                 torch.empty((4, 4, 2), **i64), True)
     # int8 weights without their scales are refused before any launch
     with pytest.raises(ValueError, match="scale"):
         mlp_ops.filter_predict_fused(w1.to(torch.int8), v, v.to(torch.int8),
@@ -156,7 +166,7 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "fused_filter_mlp_bf16",
                                     "fused_filter_mlp_int8", "box_lb",
                                     "filter_mlp", "replay", "train_forward",
-                                    "train_backward_sgd"}
+                                    "train_backward_sgd", "leaf_topk"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -251,7 +261,8 @@ def test_new_modules_are_checked():
              p.parents}
     for mod in ("analysis/roofline.py", "bench/filters_bench.py",
                 "kernels/filter_train/kernel.py",
-                "kernels/filter_train/ref.py", "data/series.py"):
+                "kernels/filter_train/ref.py", "data/series.py",
+                "kernels/leaf_topk/kernel.py", "kernels/leaf_topk/ref.py"):
         assert mod in names
 
 

@@ -80,12 +80,13 @@ def test_chip_limits_are_unchanged():
     cascade replay only compares and selects, so it is held bitwise.  The
     training kernels' limits (``test_torch_filter_train.py``): dpred and
     the updated velocities within 2e-5 of their own largest value, with no
-    absolute term (the parameters are held bitwise to their own update)."""
+    absolute term (the parameters are held bitwise to their own update).
+    The candidate pass takes the first port's float32 limit too."""
     limits = _chip_limits()
     assert set(limits) == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
                            "box_lb", "filter_mlp", "replay", "train_forward",
-                           "train_backward_sgd"}
+                           "train_backward_sgd", "leaf_topk"}
     assert limits.pop("replay") == (0.0, 0.0)
     assert limits.pop("train_forward") == (0.0, 2e-5)
     assert limits.pop("train_backward_sgd") == (0.0, 2e-5)
