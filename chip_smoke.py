@@ -5,7 +5,12 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels from ``src/repro_torch/csrc`` (one nvcc per source,
-   all started together).
+   all started together), printing each kernel's registers, spills and
+   ptxas's wgmma notes and the training kernels' shared memory a block.
+   Then the tensor-core rounding phase (``check_tc_rounding``): crafted
+   TF32 products on wgmma and mma.sync must round as every split-TF32
+   emulation and ``FLIP_PRE`` assume (one rounding a k8 step, toward zero;
+   an operand's 13 low bits dropped), bitwise.
 2. DSTree, end to end through the port's entry points: RandWalk 1,000,000 ×
    256 (numpy seed 0) → ``build_leafi(LeaFiConfig(backbone="dstree",
    leaf_capacity=256, t_filter_over_t_series=20.0))`` → 256 queries at
@@ -209,7 +214,9 @@ STEPS_DZ_LIMIT = 5e-5
 TRAINING_RMSE_LIMIT = 6e-7
 TRAINING_DZ_LIMIT = 4e-4
 #: design of each kernel, and the tensor-core passes of the split-TF32 ones
-#: (products per float32 multiply-add; bf16/int8 weights are exact in TF32)
+#: (products per float32 multiply-add; bf16/int8 weights are exact in TF32;
+#: the backward training kernel's 2.5 is 3 for the recomputed layer 1 and 2
+#: for the w1 gradient, whose mask operand is exact)
 DESIGN = {
     "pairwise_l2": ("split-TF32 mma.sync, 128x128 tile, 3-stage cp.async", 3),
     "slab_l2": ("split-TF32 mma.sync, 128 slab rows x 104 queries (queries "
@@ -231,15 +238,25 @@ DESIGN = {
                "against the chunk's bsf, the candidates' slots preloaded "
                "(kk <= 8) and walked one by one; top-k in registers for "
                "k <= 32, in the output row beyond", None),
-    "train_forward": ("split-TF32 mma.sync, one filter a block, its 160 "
-                      "gathered rows x 128-lane chunks, 3-stage cp.async; "
-                      "writes dpred only", 3),
-    "train_backward_sgd": ("one block per (filter, 128-lane chunk): layer 1 "
-                           "recomputed (split-TF32), dpre in shared memory, "
-                           "X^T.dpre on split-TF32 mma.sync summed per "
-                           "32-row stage, SGD in the epilogue; a batch "
+    "train_forward": ("persistent, one block of 3 warpgroups per SM over "
+                      "(filter, 160-row tile) items: a producer warpgroup "
+                      "(cp.async gathers of the raw rows and their lo "
+                      "parts into "
+                      "128-byte-swizzled stages, TMA w1 tiles, mbarriers, "
+                      "3 stages of 72 KB), 2 consumer warpgroups of 80 rows "
+                      "on split-TF32 wgmma m64n80k8, 4 lane tiles each (A "
+                      "= w1^T split in registers); writes dpred only", 3),
+    "train_backward_sgd": ("persistent over (filter, 128-lane) items: the "
+                           "forward's producer and layer 1 (2 lane tiles, "
+                           "recomputed bitwise), the relu mask kept as "
+                           "bits, g_w1 = w2 * (X*dpred)^T.M on wgmma "
+                           "m64n64k8 (2 products, M exact) per 64-column "
+                           "tile of m whose raw rows serve both 64-lane "
+                           "chunks, 40-row stages, the two warpgroups' "
+                           "halves summed; w1 / v_w1 tiles in and out by "
+                           "TMA through a 2-deep ring, SGD between; a batch "
                            "above 128 in 160-row tiles, g_w1 summed in the "
-                           "velocity", 3),
+                           "velocity", 2.5),
     "leaf_topk": ("one warp a (query, survivor leaf) pair, pairs leaf-major "
                   "over a grid sized to the SMs, most row reads hitting "
                   "L2; 32 rows a step read "
@@ -254,7 +271,7 @@ LEAF_TOPK_SPLIT_PASSES = 3
 SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
-                 "leaf_topk_kernel")
+                 "leaf_topk_kernel", "tc_rounding_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
@@ -332,8 +349,10 @@ def capture_largest_inputs(captured: dict):
     the probe's calls apart (``leaf_topk@probe``, rows by slot).  The
     training kernels' calls all have one size per build; of the largest build's, the
     ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
-    it was given cloned (later steps update them in place).  The wrappers
-    themselves, and their launch counts, are unchanged."""
+    it was given cloned (later steps update them in place) and without the
+    rows' low parts, which belong to their training alone (``None`` in
+    their place: ``_with_lo`` makes them anew).  The wrappers themselves,
+    and their launch counts, are unchanged."""
     from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
@@ -399,7 +418,8 @@ def capture_largest_inputs(captured: dict):
                     if id(a) not in clones:
                         clones[id(a)] = a.clone()
                 state = tuple(clones[id(a)] for a in args[:_n])
-                captured[_name] = (size, state + tuple(args[_n:]))
+                captured[_name] = (size, state + tuple(args[_n:-2])
+                                   + (None, None))
             return _fn(*args)
         saved.append((train_kernel, f"{name}_cuda", fn))
         setattr(train_kernel, f"{name}_cuda", wrapped_train)
@@ -412,6 +432,16 @@ def capture_largest_inputs(captured: dict):
 
 #: the training kernels' call kept per build (a step with velocities)
 TRAIN_CAPTURE_CALL = 10
+#: the training kernels: their calls end with the rows' low parts
+TRAIN_KERNELS = ("train_forward", "train_backward_sgd")
+
+
+def _with_lo(args: tuple) -> tuple:
+    """A training kernel's call with its last two arguments, the rows'
+    low parts, made from its rows (``ref.x_lo``)."""
+    from repro_torch.kernels.filter_train import ref as train_ref
+    xg, xl = args[4:6] if len(args) == 15 else args[8:10]
+    return tuple(args[:-2]) + (train_ref.x_lo(xg), train_ref.x_lo(xl))
 
 
 def _sync(device) -> None:
@@ -539,6 +569,16 @@ def _calib_recall_line(label: str, lfi, device, target: float = 0.99
     return float(hit.mean())
 
 
+def _phase_memory(label: str) -> None:
+    """Starts a phase's peak memory reading: logs what earlier phases
+    still hold on the card (the captured calls' tensors among it), which
+    the phase's peak includes, and resets the peak."""
+    import torch
+    log(f"{label}device memory held at the phase's start: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _build_lines(label: str, lfi, t_build: float, on_card: bool) -> None:
     import torch
     rep = lfi.build_report
@@ -588,7 +628,7 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
+        _phase_memory("")
     captured = {} if captured is None else captured
     _zero_counters()
     with capture_largest_inputs(captured):
@@ -862,7 +902,7 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
+        _phase_memory("isax ")
     captured = {} if captured is None else captured
     _zero_counters()
     with capture_largest_inputs(captured):
@@ -1270,7 +1310,8 @@ def _step_args(state: dict) -> tuple:
     dpred = train_ref.train_forward(*params, inp.xg, inp.xl, ig, il, inp.ygz,
                                     inp.ylz, inp.vg, inp.vl, inp.w_g)
     return (params + tuple(vel[k] for k in train_ref.TRAINABLE)
-            + (inp.xg, inp.xl, ig, il, dpred, lr, state["momentum"]))
+            + (inp.xg, inp.xl, ig, il, dpred, lr, state["momentum"],
+               inp.xg_lo, inp.xl_lo))
 
 
 def _tf32(fn, *args):
@@ -1574,12 +1615,14 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _train_bound(name: str, args, passes: int | None) -> tuple:
+def _train_bound(name: str, args, passes: float | None) -> tuple:
     """The training kernels' bound.  Operations: the layer-1 products and
     the layer-2 multiply-adds (``roofline.mlp_operations`` over the step's
     rows), for the backward pass twice (the recompute and Xᵀ·dpre) plus the
-    update's 4 per w1 element.  Bytes: the parameters read once (w1, b1,
-    w2, b2), the distinct rows this step gathers, the targets and masks of
+    update's 4 per w1 element; ``passes`` as ``_bound`` (the backward
+    design's 2.5: three for the recompute, two for the w1 gradient).
+    Bytes: the parameters read once (w1, b1, w2, b2), the distinct rows
+    this step gathers, the targets and masks of
     its rows and dpred written; the backward pass reads dpred and reads and
     writes every parameter and velocity instead."""
     from repro_torch.analysis import roofline
@@ -1783,8 +1826,10 @@ def _kernel_tables():
                 "box_lb": box_ref.box_lb,
                 "filter_mlp": _plain_raw_mlp,
                 "replay": replay_ref.replay_cascade,
-                "train_forward": train_ref.train_forward,
-                "train_backward_sgd": train_ref.train_backward_sgd,
+                # the kernels' calls end with the rows' low parts
+                "train_forward": lambda *a: train_ref.train_forward(*a[:-2]),
+                "train_backward_sgd":
+                    lambda *a: train_ref.train_backward_sgd(*a[:-2]),
                 "leaf_topk": leaf_ref.leaf_topk}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
@@ -2096,10 +2141,11 @@ def train_calls(device: str = "cuda") -> dict:
                 t(rng.random(n_g) < 0.2), t(rng.random(n_l) < 0.2),
                 n_g / (n_g + n_l))
         fwd = params + (xg, xl, ig, il) + rest
-        calls["train_forward"].append(fwd)
+        lo = (train_ref.x_lo(xg), train_ref.x_lo(xl))
+        calls["train_forward"].append(fwd + lo)
         calls["train_backward_sgd"].append(
             params + vels + (xg, xl, ig, il, train_ref.train_forward(*fwd),
-                             1e-2, 0.9))
+                             1e-2, 0.9) + lo)
     return calls
 
 
@@ -2290,6 +2336,8 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
         if name not in captured:
             raise AssertionError(f"{name}: never called on the main path")
         args = captured[name][1]
+        if name in TRAIN_KERNELS:
+            args = _with_lo(args)
         res = _check_call(name, args, name, power)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
@@ -2351,6 +2399,109 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     return rows
 
 
+#: 0.75 of float32's ulp at 1.0, and 1 + 0.75 of a TF32 ulp (bits that a
+#: TF32 operand drops)
+_THREE_QUARTER_ULP = 1.5 * 2.0 ** -24
+_LOW_BITS = 1 + 2.0 ** -11 + 2.0 ** -12
+
+
+def tc_rounding_cases() -> tuple:
+    """The tensor-core rounding probe's crafted cases (``csrc/
+    tc_rounding.cu``): names, A (n, 64, 8), B (n, 8, 8), C (n, 64, 8)
+    float32.  Each gives a different result under every rounding but the
+    one the split-TF32 kernels and their emulation assume (a k8 step's
+    eight exact products and the accumulator summed, then rounded once
+    toward zero; an operand's 13 low mantissa bits dropped); the last case
+    (small integers, exact under any rounding) checks the fragment layouts
+    and the shared-memory descriptor."""
+    u = _THREE_QUARTER_ULP
+    plan = [
+        ("step sum rounded toward zero (+)", {0: u}, {0: 1.0}, 1.0),
+        ("step sum rounded toward zero (-)", {0: -u}, {0: 1.0}, -1.0),
+        ("one rounding a step (k = 0, 1)", {0: u, 1: u}, {0: 1.0, 1: 1.0},
+         1.0),
+        ("one rounding a step (k = 0, 4)", {0: u, 4: u}, {0: 1.0, 4: 1.0},
+         1.0),
+        ("B's 13 low bits dropped (shared memory)", {0: 1.0},
+         {0: _LOW_BITS}, 0.0),
+        ("A's 13 low bits dropped (registers)", {0: _LOW_BITS}, {0: 1.0},
+         0.0),
+    ]
+    names, A, B, C = [], [], [], []
+    for name, a_cols, b_rows, c in plan:
+        a, b = np.zeros((64, 8)), np.zeros((8, 8))
+        for k, v in a_cols.items():
+            a[:, k] = v
+        for k, v in b_rows.items():
+            b[k, :] = v
+        names.append(name)
+        A.append(a), B.append(b), C.append(np.full((64, 8), c))
+    rng = np.random.default_rng(5)
+    names.append("layouts (small integers, exact)")
+    A.append(rng.integers(-4, 5, (64, 8)))
+    B.append(rng.integers(-4, 5, (8, 8)))
+    C.append(rng.integers(-64, 65, (64, 8)))
+    return (names,) + tuple(np.ascontiguousarray(x, dtype=np.float32)
+                            for x in (np.stack(A), np.stack(B), np.stack(C)))
+
+
+def tc_rounding_expected(A, B, C, rounding: str = "zero"):
+    """C + A·B per case with A and B read as TF32 (13 low bits dropped), the
+    exact sum rounded once to float32 toward ``"zero"`` (the assumption) or
+    to ``"nearest"``; ``"full"`` keeps every operand bit and rounds to
+    nearest.  float32 (n, 64, 8)."""
+    import torch
+    from repro_torch.kernels.l2_scan.ref import tf32_truncate
+    a, b, c = (torch.from_numpy(x) for x in (A, B, C))
+    if rounding != "full":
+        a, b = tf32_truncate(a), tf32_truncate(b)
+    exact = c.double() + a.double() @ b.double()
+    f = exact.float()
+    if rounding == "zero":
+        f = torch.where(f.double().abs() > exact.abs(),
+                        torch.nextafter(f, torch.zeros_like(f)), f)
+    return f.numpy()
+
+
+def check_tc_rounding() -> dict:
+    """The card's TF32 tensor cores on ``tc_rounding_cases``: wgmma (A from
+    registers, B from shared memory, the training kernels' form) and
+    mma.sync (tf32x3.cuh's) must both give ``tc_rounding_expected``'s
+    round-toward-zero results bitwise, which ``FLIP_PRE``'s margin and
+    every split-TF32 emulation assume."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import common
+    names, A, B, C = tc_rounding_cases()
+    lib = common.load("tc_rounding", {
+        "tc_rounding_probe": [ctypes.c_void_p] * 5
+        + [ctypes.c_int, ctypes.c_void_p]})
+    a, b, c = (torch.from_numpy(x).cuda() for x in (A, B, C))
+    dw = torch.empty_like(c)
+    dm = torch.empty((len(names), 16, 8), device="cuda")
+    common.check(lib.tc_rounding_probe(
+        *(common.ptr(t) for t in (a, b, c, dw, dm)), len(names),
+        common.stream_ptr(a)), "tc_rounding_probe")
+    torch.cuda.synchronize()
+    want = tc_rounding_expected(A, B, C)
+    near = tc_rounding_expected(A, B, C, "nearest")
+    full = tc_rounding_expected(A, B, C, "full")
+    got_w, got_m = dw.cpu().numpy(), dm.cpu().numpy()
+    out = {}
+    for i, name in enumerate(names):
+        ok_w = np.array_equal(got_w[i].view(np.int32), want[i].view(np.int32))
+        ok_m = np.array_equal(got_m[i].view(np.int32),
+                              want[i, :16].view(np.int32))
+        out[name] = {"wgmma": ok_w, "mma.sync": ok_m}
+        log(f"tensor-core rounding, {name}: expected {want[i, 0, 0]!r} "
+            f"(to nearest {near[i, 0, 0]!r}, all bits {full[i, 0, 0]!r}); "
+            f"wgmma {got_w[i, 0, 0]!r} {'ok' if ok_w else 'DIFFERS'}, "
+            f"mma.sync {got_m[i, 0, 0]!r} {'ok' if ok_m else 'DIFFERS'}")
+    bad = [n for n, v in out.items() if not all(v.values())]
+    assert not bad, f"the tensor cores do not round as assumed: {bad}"
+    return out
+
+
 def _ptxas_report(logs: dict) -> None:
     """Print each kernel's registers, shared memory and spills from the
     build's ``-Xptxas -v`` output; the redesigned kernels must not spill."""
@@ -2363,7 +2514,7 @@ def _ptxas_report(logs: dict) -> None:
             if entry:
                 func = entry.group(1)
                 continue
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {lib}: {func}: "
                     f"{line.removeprefix('ptxas info    :').strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
@@ -2388,9 +2539,12 @@ def main() -> int:
     power = card.split(",")[-1].strip()
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
-                         "filter_train", "leaf_topk"])
+                         "filter_train", "leaf_topk", "tc_rounding"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
+    from repro_torch.kernels.filter_train import kernel as train_kernel
+    log("  dynamic shared memory a block (bytes): "
+        + json.dumps(train_kernel.kernel_smem()))
 
     captured: dict = {}
     phases: dict = {}
@@ -2401,6 +2555,7 @@ def main() -> int:
         phases[name] = round(time.perf_counter() - t, 2)
         return out
 
+    phase("tensor-core rounding", check_tc_rounding)
     series = make_series()
     e2e = phase("dstree", run_end_to_end, device="cuda", captured=captured,
                 series=series)

@@ -149,17 +149,19 @@ def sgd_step(tp: Dict[str, torch.Tensor], vel: Dict[str, torch.Tensor],
     tensors autograd of the reference's loss (``filter_train/ref.py``);
     for CUDA tensors the two training kernels: ``train_forward`` (the
     forward pass → ∂loss/∂pred), then ``train_backward_sgd`` (gradients
-    and update in one pass, parameters and velocities in place)."""
+    and update in one pass, parameters and velocities in place), which
+    read the rows' low parts ``inp`` carries (``train_ref.split_inputs``,
+    once a training) beside the rows."""
     if on_cpu(tp["w1"]):
         train_ref.autograd_step(tp, vel, inp, ig, il, lr, momentum)
         return
     params = [tp[k] for k in train_ref.TRAINABLE]
     dpred = train_kernel.train_forward_cuda(
         *params, inp.xg, inp.xl, ig, il, inp.ygz, inp.ylz, inp.vg, inp.vl,
-        inp.w_g)
+        inp.w_g, inp.xg_lo, inp.xl_lo)
     train_kernel.train_backward_sgd_cuda(
         *params, *(vel[k] for k in train_ref.TRAINABLE), inp.xg, inp.xl, ig,
-        il, dpred, lr, momentum)
+        il, dpred, lr, momentum, inp.xg_lo, inp.xl_lo)
 
 
 def _val_loss(tp, inp: train_ref.TrainInputs) -> torch.Tensor:
@@ -224,6 +226,9 @@ def train_filters(index: FlatIndex, data: TrainingData,
     inp = train_ref.TrainInputs(
         data.global_queries.contiguous(), ygz.contiguous(),
         data.local_queries.contiguous(), ylz.contiguous(), vg, vl, w_g)
+    if not on_cpu(inp.xg):
+        # the rows' low parts the kernels read, once; freed with ``inp``
+        inp = train_ref.split_inputs(inp)
     tp = {k: params[k].detach().clone() for k in train_ref.TRAINABLE}
     vel = {k: torch.zeros_like(tp[k]) for k in train_ref.TRAINABLE}
     best = {k: params[k].detach().clone() for k in train_ref.TRAINABLE}

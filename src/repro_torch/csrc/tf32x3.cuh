@@ -1,6 +1,6 @@
 // Split-TF32 tensor-core products and cp.async staging for Hopper (sm_90a),
-// shared by l2_scan.cu, filter_mlp.cu and filter_train.cu; the last two take
-// their layer-1 products through one ring and warp stage (below).
+// shared by l2_scan.cu and filter_mlp.cu (filter_train.cu takes the split
+// and the 16-byte copy; its products are wgmma, hopper.cuh).
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits, so one TF32 product
 // errs by ~2^-11 relative: a TF32 run of the kernels' plain versions misses
@@ -23,10 +23,9 @@
 // kernels/l2_scan/ref.py `split_tf32_matmul` emulates both on the CPU.
 //
 // Everything here is mma.sync (warp-level, register operands loaded from
-// shared memory by the kernels).  wgmma reaches the full tensor-core rate
-// and takes TF32 operands from shared memory K-major, which pairwise_l2's
-// operands are; that, with TMA loads and a producer warp in place of the
-// block-wide barrier per stage, is a later step.
+// shared memory by the kernels).  wgmma reaches the full tensor-core rate;
+// filter_train.cu runs on it (hopper.cuh), and chip_smoke.py's rounding
+// phase checks that both round each step as described above.
 
 #pragma once
 

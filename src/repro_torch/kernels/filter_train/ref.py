@@ -17,23 +17,31 @@ p − lr·v``, in the order of the reference's ``_sgd_step``.
   forward pass's ∂loss/∂pred, then the explicit gradients and the update
   in place.  ``chip_smoke.py`` holds the kernels against them on the card;
   :func:`train_step_manual` is the two together.
+* :func:`x_lo` — the rows' low parts, lo = x − trunc(x) (exact), made
+  once a training and carried in :class:`TrainInputs` (``xg_lo``,
+  ``xl_lo``).  The kernels read the raw rows as the high part (the tensor
+  cores drop a float32 operand's 13 low bits, so x_hi = trunc(x)) and lo
+  beside them: they split no X element.
 * :func:`train_forward_split_tf32` and :func:`train_backward_sgd_split_tf32`
   — the same with the products as the kernels take them on the tensor
-  cores (``l2_scan/ref.split_tf32_matmul``): x·w1 as three split-TF32
-  passes summed over all of m (the fused filter kernel's body), Xᵀ·dpre as
-  three passes summed per 32-row stage and the stages in float32, one
-  ``TILE_ROWS``-row tile at a time into the velocities.  The tests hold their
+  cores (``l2_scan/ref.tensor_core_steps``): x·w1 as three split-TF32
+  passes summed over all of m (w1_lo·x_hi, w1_hi·x_lo, w1_hi·x_hi; the
+  tensor cores read x and lo with their 13 low bits dropped), and g_w1 as
+  w2 ⊙ Σ_r (x·dpred)[r]·M[r] with M the relu mask (exact in TF32): y = x·dpred
+  split, y_lo·M and y_hi·M per step, each 80-row half of a ``TILE_ROWS``
+  tile summed in two 40-row stages (the stages in float32), the halves
+  added, one tile at a time into the velocities.  The tests hold their
   error to the card's limits; no path runs them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..filter_mlp import ref as mlp_ref
-from ..l2_scan.ref import split_tf32_matmul
+from ..l2_scan.ref import split_tf32, tensor_core_steps, tf32_truncate
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,6 +51,10 @@ TRAINABLE = ("w1", "b1", "w2", "b2")
 #: the training kernels' row tile (``ROWS`` in ``csrc/filter_train.cu``): a
 #: step of more rows, a batch above 128, takes its tiles one after another
 TILE_ROWS = 160
+#: the backward kernel's w1 gradient: each consumer warpgroup's rows of a
+#: tile (``WG_ROWS``), in stages of ``GRAD_STAGE`` rows (``GK`` k8 steps)
+WG_ROWS = 80
+GRAD_STAGE = 40
 
 
 def row_tiles(bg: int, bl: int) -> int:
@@ -61,6 +73,25 @@ class TrainInputs:
     vg: torch.Tensor      # (n_g,) 1 on validation rows
     vl: torch.Tensor      # (n_l,)
     w_g: float            # n_g / (n_g + n_l)
+    #: the rows' low parts (:func:`x_lo`), which the kernels read beside
+    #: ``xg`` and ``xl``: same shapes; ``None`` on the CPU path
+    xg_lo: Optional[torch.Tensor] = None
+    xl_lo: Optional[torch.Tensor] = None
+
+
+def x_lo(x: torch.Tensor) -> torch.Tensor:
+    """x − trunc(x), with trunc(x) = x with its 13 low bits dropped (the
+    TF32 value the tensor cores read of x): exact in float32, so trunc(x)
+    + lo == x.  Made in its output: no temporary of x's size."""
+    x = x.float().contiguous()
+    lo = torch.empty_like(x)
+    torch.bitwise_and(x.view(torch.int32), ~0x1FFF, out=lo.view(torch.int32))
+    return torch.sub(x, lo, out=lo)
+
+
+def split_inputs(inp: TrainInputs) -> TrainInputs:
+    """``inp`` with the rows' low parts made (once a training)."""
+    return dataclasses.replace(inp, xg_lo=x_lo(inp.xg), xl_lo=x_lo(inp.xl))
 
 
 # ---------------------------------------------------------------------------
@@ -172,32 +203,74 @@ def train_step_manual(tp: Params, vel: Params, inp: TrainInputs,
 # ---------------------------------------------------------------------------
 
 
-def _pre_split_tf32(x, w1, b1) -> torch.Tensor:
-    return split_tf32_matmul(x, w1) + b1[:, None, :]
+def _halves(xg, xl, ig, il, xg_lo, xl_lo) -> tuple:
+    """The step's rows' TF32 halves as the kernels' tensor cores read
+    them: the raw rows and their lo parts (:func:`x_lo`, made here when not
+    given), each with its 13 low bits dropped."""
+    xg_lo = x_lo(xg) if xg_lo is None else xg_lo
+    xl_lo = x_lo(xl) if xl_lo is None else xl_lo
+    return (tf32_truncate(_rows(xg, xl, ig, il)),
+            tf32_truncate(_rows(xg_lo, xl_lo, ig, il)))
+
+
+def _pre_split_tf32(x_hi, x_lo, w1, b1) -> torch.Tensor:
+    """Layer 1 as both kernels take it: w1_lo·x_hi, w1_hi·x_lo, w1_hi·x_hi
+    per k8 step, all of m into one accumulator."""
+    w_hi, w_lo = split_tf32(w1)
+    return tensor_core_steps([(x_hi, w_lo), (x_lo, w_hi), (x_hi, w_hi)]) \
+        + b1[:, None, :]
 
 
 def train_forward_split_tf32(w1, b1, w2, b2, xg, xl, ig, il, ygz, ylz, vg,
-                             vl, w_g: float) -> torch.Tensor:
-    """:func:`train_forward` with x·w1 as the kernel's split-TF32 steps."""
-    pre = _pre_split_tf32(_rows(xg, xl, ig, il), w1, b1)
+                             vl, w_g: float, xg_lo=None,
+                             xl_lo=None) -> torch.Tensor:
+    """:func:`train_forward` with x·w1 as the kernel's split-TF32 steps on
+    the rows and their lo parts (made here when not given)."""
+    pre = _pre_split_tf32(*_halves(xg, xl, ig, il, xg_lo, xl_lo), w1, b1)
     pred = (torch.relu(pre) * w2[:, None, :]).sum(-1) + b2[:, None]
     return _dpred(pred, ygz, ylz, vg, vl, ig, il, w_g)
 
 
+def _gw1_split_tf32(x, pre, w2, dpred) -> torch.Tensor:
+    """g_w1 of one row tile as the backward kernel takes it: y = x·dpred
+    split, y_lo·M and y_hi·M per k8 step (M = [pre > 0], exact in TF32),
+    each ``WG_ROWS`` half of the tile (zero rows past its end) summed in
+    ``GRAD_STAGE``-row stages and the stages in float32, the halves added
+    (rows 0-79 first), then times w2."""
+    F, r, m = x.shape
+    pad = TILE_ROWS - r
+    y = torch.nn.functional.pad(x * dpred[:, :, None], (0, 0, 0, pad))
+    mask = torch.nn.functional.pad((pre > 0).float(), (0, 0, 0, pad))
+    y_hi, y_lo = split_tf32(y.transpose(1, 2))              # (F, m, rows)
+    halves = []
+    for h0 in range(0, TILE_ROWS, WG_ROWS):
+        part = torch.zeros((F, m, mask.shape[-1]))
+        for s0 in range(h0, h0 + WG_ROWS, GRAD_STAGE):
+            rs = slice(s0, s0 + GRAD_STAGE)
+            part = part + tensor_core_steps([(y_lo[..., rs], mask[:, rs]),
+                                             (y_hi[..., rs], mask[:, rs])])
+        halves.append(part)
+    return w2[:, None, :] * (halves[0] + halves[1])
+
+
 def train_backward_sgd_split_tf32(w1, b1, w2, b2, v_w1, v_b1, v_w2, v_b2,
                                   xg, xl, ig, il, dpred, lr: float,
-                                  momentum: float) -> None:
-    """:func:`train_backward_sgd` with x·w1 and Xᵀ·dpre as the kernel's
-    split-TF32 steps (Xᵀ·dpre summed per 32-row stage), and the gradients
-    summed into their velocities one ``TILE_ROWS``-row tile at a time
-    (``v ← μ·v + g`` of the first tile, ``v += g`` of each later one; one
-    tile is :func:`_sgd`)."""
+                                  momentum: float, xg_lo=None,
+                                  xl_lo=None) -> None:
+    """:func:`train_backward_sgd` with layer 1 as the kernels' split-TF32
+    steps (:func:`train_forward_split_tf32`'s), g_w1 as
+    :func:`_gw1_split_tf32`, and the gradients summed into their velocities
+    one ``TILE_ROWS``-row tile at a time (``v ← μ·v + g`` of the first tile,
+    ``v += g`` of each later one; one tile is :func:`_sgd`)."""
     x = _rows(xg, xl, ig, il)
-    pre = _pre_split_tf32(x, w1, b1)
-    tiles = [_gradients(x[:, r:r + TILE_ROWS], pre[:, r:r + TILE_ROWS], w2,
-                        dpred[:, r:r + TILE_ROWS],
-                        lambda a, b: split_tf32_matmul(a, b, flush_every=4))
-             for r in range(0, x.shape[1], TILE_ROWS)]
+    pre = _pre_split_tf32(*_halves(xg, xl, ig, il, xg_lo, xl_lo), w1, b1)
+    tiles = []
+    for r in range(0, x.shape[1], TILE_ROWS):
+        rs = slice(r, r + TILE_ROWS)
+        _, g_b1, g_w2, g_b2 = _gradients(x[:, rs], pre[:, rs], w2,
+                                         dpred[:, rs], torch.bmm)
+        tiles.append((_gw1_split_tf32(x[:, rs], pre[:, rs], w2, dpred[:, rs]),
+                      g_b1, g_w2, g_b2))
     params, vels = (w1, b1, w2, b2), (v_w1, v_b1, v_w2, v_b2)
     with torch.no_grad():
         for i, grads in enumerate(tiles):

@@ -6,7 +6,8 @@ compute (‖q‖² + ‖s‖² − 2·q·sᵀ, then sqrt(max(·, 0))); the wrapp
 against them on the card.  ``pairwise_l2`` is the direct (diff-square) form.
 
 ``split_tf32_matmul`` emulates, on the CPU, the split-TF32 tensor-core
-products of the l2 and fused filter kernels (``csrc/tf32x3.cuh``), and
+products of the l2 and fused filter kernels (``csrc/tf32x3.cuh``) on
+``tensor_core_steps`` (the training kernels' products take it directly), and
 ``pairwise_l2_split_tf32`` / ``slab_l2_split_tf32`` the pairwise and slab
 kernels with them.  The tests
 use them to hold the split's error to the card's limits before a chip run;
@@ -69,35 +70,23 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor,
-                      b_exact: bool = False,
-                      flush_every: Optional[int] = None) -> torch.Tensor:
-    """``a @ b`` (float32, broadcasting as ``torch.matmul``) as the kernels
-    take it on the tensor cores.  Each float32 operand x is split into hi =
-    ``tf32_round(x)`` and lo = ``tf32_truncate(x − hi)``; over 8-deep slices of the inner
-    dimension in order, the small products (lo·hi′ then hi·lo′, or lo·b
-    alone when ``b_exact``: bf16 and int8 weights are exact in TF32) and
-    then hi·hi′ go into one float32 accumulator, one m16n8k8 step each.  A
-    step's products are exact and its sum is rounded toward zero to
-    float32, as published measurements of NVIDIA's tensor cores find.
-    With ``flush_every`` the accumulator is added, to nearest, into a
-    running float32 sum after every ``flush_every`` slices and restarts
-    from zero (pairwise_l2 does so once per 32-deep stage)."""
-    a = a.float()
-    b = b.float()
-    a_hi = tf32_round(a)
-    a_lo = tf32_truncate(a - a_hi)
-    if b_exact:
-        terms = [(a_lo, b), (a_hi, b)]
-    else:
-        b_hi = tf32_round(b)
-        b_lo = tf32_truncate(b - b_hi)
-        terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
-    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (
-        a.shape[-2], b.shape[-1])
+def tensor_core_steps(terms, flush_every: Optional[int] = None
+                      ) -> torch.Tensor:
+    """``Σ a @ b`` over ``terms`` (pairs of operands exact in TF32,
+    broadcasting as ``torch.matmul``) as the tensor cores take it: over
+    8-deep slices of the inner dimension in order, each term's products go
+    into one float32 accumulator, one k8 step each.  A step's products are
+    exact and its sum is rounded toward zero to float32, as published
+    measurements of NVIDIA's tensor cores find (``chip_smoke.py``'s rounding
+    phase checks it on the card, for mma.sync and wgmma).  With
+    ``flush_every`` the accumulator is added, to nearest, into a running
+    float32 sum after every ``flush_every`` slices and restarts from zero."""
+    a0, b0 = terms[0]
+    shape = torch.broadcast_shapes(a0.shape[:-2], b0.shape[:-2]) + (
+        a0.shape[-2], b0.shape[-1])
     total = torch.zeros(shape)
     part = torch.zeros(shape)
-    for n, k0 in enumerate(range(0, a.shape[-1], 8), start=1):
+    for n, k0 in enumerate(range(0, a0.shape[-1], 8), start=1):
         ks = slice(k0, k0 + 8)
         for x, y in terms:
             part = _round_toward_zero(
@@ -106,6 +95,34 @@ def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor,
             total = total + part
             part = torch.zeros(shape)
     return total + part
+
+
+def split_tf32(x: torch.Tensor) -> tuple:
+    """x → (hi, lo) as the kernels split a float32 operand: hi =
+    :func:`tf32_round`, lo = :func:`tf32_truncate` of x − hi."""
+    x = x.float()
+    hi = tf32_round(x)
+    return hi, tf32_truncate(x - hi)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                      b_exact: bool = False,
+                      flush_every: Optional[int] = None) -> torch.Tensor:
+    """``a @ b`` (float32, broadcasting as ``torch.matmul``) as the kernels
+    take it on the tensor cores.  Each float32 operand x is split into hi =
+    ``tf32_round(x)`` and lo = ``tf32_truncate(x − hi)``; the small products
+    (lo·hi′ then hi·lo′, or lo·b alone when ``b_exact``: bf16 and int8
+    weights are exact in TF32) and then hi·hi′ are
+    :func:`tensor_core_steps` (pairwise_l2 flushes once per 32-deep stage,
+    ``flush_every=4``)."""
+    a_hi, a_lo = split_tf32(a)
+    if b_exact:
+        b = b.float()
+        terms = [(a_lo, b), (a_hi, b)]
+    else:
+        b_hi, b_lo = split_tf32(b)
+        terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    return tensor_core_steps(terms, flush_every)
 
 
 def pairwise_l2_split_tf32(queries: torch.Tensor,

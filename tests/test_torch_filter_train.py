@@ -25,6 +25,7 @@ from repro_torch.core import filter_training as t_training
 from repro_torch.data import series as t_series
 from repro_torch.kernels.filter_train import kernel as train_kernel
 from repro_torch.kernels.filter_train import ref as train_ref
+from repro_torch.kernels.l2_scan import ref as l2_ref
 from repro_torch.kernels.l2_scan.ref import tf32_round
 from _torch_threads import one_torch_thread  # noqa: F401
 # the default width's collection and the reference's minibatch draws
@@ -251,24 +252,39 @@ def test_train_filters_matches_reference_at_hidden_16(collected):
 
 
 def _kernel_args(dev="cpu"):
+    """The wrappers' tensor arguments: the forward's 12 and the backward's
+    13 leading ones, each followed by the rows' low parts."""
     tp, vel, inp, ig, il = _step_state(3, 16, 16, 20, 8, 8, 2)
+    inp = train_ref.split_inputs(inp)
     fwd = [*(tp[k] for k in train_ref.TRAINABLE), inp.xg, inp.xl, ig, il,
-           inp.ygz, inp.ylz, inp.vg, inp.vl]
+           inp.ygz, inp.ylz, inp.vg, inp.vl, inp.xg_lo, inp.xl_lo]
     bwd = [*(tp[k] for k in train_ref.TRAINABLE),
            *(vel[k] for k in train_ref.TRAINABLE), inp.xg, inp.xl, ig, il,
-           torch.zeros((3, 10))]
+           torch.zeros((3, 10)), inp.xg_lo, inp.xl_lo]
     return [a.to(dev) for a in fwd], [a.to(dev) for a in bwd]
+
+
+def _forward(args):
+    return train_kernel.train_forward_cuda(*args[:12], 0.5, *args[12:])
+
+
+def _backward(args):
+    return train_kernel.train_backward_sgd_cuda(*args[:13], 1e-2, 0.9,
+                                                *args[13:])
 
 
 def test_wrappers_raise_on_mixed_devices_dtypes_and_shapes():
     """The wrappers refuse, before any launch, tensors on another device
-    than w1's, of another dtype, of another shape, or a step without local
-    rows; given tensors off the CPU, ``sgd_step`` goes to the kernels
-    (here, without CUDA, that raises) and never to autograd."""
+    than w1's (the rows' low parts too), of another dtype, of another
+    shape (the low parts' too), missing low parts, or a step without
+    local rows; given tensors off the CPU, ``sgd_step`` goes to the kernels
+    (here, without CUDA, that raises) and never to autograd, and refuses
+    inputs that carry no low parts."""
     fwd_cpu, bwd_cpu = _kernel_args()
     fwd, bwd = _kernel_args("meta")
     cases = []
-    for i, name in ((4, "xg"), (6, "ig"), (9, "ylz")):
+    for i, name in ((4, "xg"), (6, "ig"), (9, "ylz"), (12, "xg_lo"),
+                    (13, "xl_lo")):
         mixed = list(fwd)
         mixed[i] = fwd_cpu[i]
         cases.append((mixed, ValueError, f"{name} is on cpu"))
@@ -281,23 +297,48 @@ def test_wrappers_raise_on_mixed_devices_dtypes_and_shapes():
     wrong = list(fwd)
     wrong[7] = torch.zeros(0, dtype=torch.int64, device="meta")
     cases.append((wrong, ValueError, "at least one global and one local"))
+    wrong = list(fwd)
+    wrong[12] = fwd[12][0].contiguous()
+    cases.append((wrong, ValueError, r"xg_lo has shape \(16,\), expected "
+                  "2 dims"))
+    wrong = list(fwd)
+    wrong[13] = fwd[13][:2].contiguous()
+    cases.append((wrong, ValueError, r"xl_lo has shape \(2, 8, 16\), "
+                  r"expected \(3, 8, 16\)"))
+    wrong = list(fwd)
+    wrong[12] = None
+    cases.append((wrong, ValueError, "low parts"))
     for args, err, match in cases:
         with pytest.raises(err, match=match):
-            train_kernel.train_forward_cuda(*args, 0.5)
+            _forward(args)
     mixed = list(bwd)
     mixed[5] = bwd_cpu[5]
     with pytest.raises(ValueError, match="v_b1 is on cpu"):
-        train_kernel.train_backward_sgd_cuda(*mixed, 1e-2, 0.9)
+        _backward(mixed)
     wrong = list(bwd)
     wrong[12] = bwd[12][:, :4].contiguous()
     with pytest.raises(ValueError, match=r"dpred has shape \(3, 4\)"):
-        train_kernel.train_backward_sgd_cuda(*wrong, 1e-2, 0.9)
+        _backward(wrong)
+    for i, name in ((13, "xg_lo"), (14, "xl_lo")):
+        mixed = list(bwd)
+        mixed[i] = bwd_cpu[i]
+        with pytest.raises(ValueError, match=f"{name} is on cpu"):
+            _backward(mixed)
+    wrong = list(bwd)
+    wrong[14] = None
+    with pytest.raises(ValueError, match="low parts"):
+        _backward(wrong)
     tp, vel, inp, ig, il = _step_state(3, 16, 16, 20, 8, 8, 2)
     meta = {k: v.to("meta") for k, v in tp.items()}
     vmeta = {k: v.to("meta") for k, v in vel.items()}
     inp_meta = train_ref.TrainInputs(
         *(getattr(inp, f).to("meta") for f in ("xg", "ygz", "xl", "ylz",
                                                  "vg", "vl")), inp.w_g)
+    with pytest.raises(ValueError, match="low parts"):
+        t_training.sgd_step(meta, vmeta, inp_meta, ig.to("meta"),
+                            il.to("meta"), 1e-2, 0.9)
+    inp_meta = train_ref.split_inputs(inp_meta)
+    assert inp_meta.xg_lo.shape == (20, 16)
     with pytest.raises(RuntimeError):
         t_training.sgd_step(meta, vmeta, inp_meta, ig.to("meta"),
                             il.to("meta"), 1e-2, 0.9)
@@ -330,7 +371,8 @@ def test_chip_smoke_training_tables():
         source, replaces, _, _ = smoke.KERNELS[name]
         assert source == "src/repro_torch/csrc/filter_train.cu"
         assert "src/repro/core/filter_training.py:274" in replaces
-        assert smoke.DESIGN[name][1] == 3
+        assert smoke.DESIGN[name][1] == (3 if name == "train_forward"
+                                         else 2.5)
         assert f"{name}_kernel" in smoke.SPLIT_KERNELS
         assert name in train_kernel.LAUNCHES
     assert smoke.KERNELS["train_forward"][2] == (0.0, 2e-5)
@@ -344,15 +386,20 @@ def test_chip_smoke_training_tables():
                                         "train_backward_sgd", "filter_mlp"}
     text = (ROOT / "src/repro_torch/csrc/filter_train.cu").read_text()
     assert "src/repro/core/filter_training.py:274" in text
-    # the row tile: 2 row warps of MI m16 tiles
+    # the row tile: its rows, each consumer warpgroup's, the w1 gradient's
+    # stage
     const = {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
-             for k in ("WARPS_M", "MI")}
-    assert const["WARPS_M"] * 16 * const["MI"] == train_ref.TILE_ROWS
+             for k in ("ROWS", "CONSUMERS", "GK")}
+    assert const["ROWS"] == train_ref.TILE_ROWS
+    assert const["ROWS"] // const["CONSUMERS"] == train_ref.WG_ROWS
+    assert 8 * const["GK"] == train_ref.GRAD_STAGE
+    assert "constexpr int WG_ROWS = ROWS / CONSUMERS;" in text
     assert [train_ref.row_tiles(bg, bl) for bg, bl in
             ((128, 32), (4, 1), (200, 50), (256, 64), (512, 128))] == [
                 1, 1, 2, 2, 4]
     assert set(train_kernel._SIGNATURES) == {"train_forward",
-                                             "train_backward_sgd"}
+                                             "train_backward_sgd",
+                                             "train_smem"}
     for entry in train_kernel._SIGNATURES:
         assert f'extern "C" int {entry}(' in text
 
@@ -375,15 +422,18 @@ def test_chip_smoke_train_ragged_calls_within_the_limits():
         True, False}
     assert all(len(set(c[6].tolist())) < c[6].shape[0]
                for c in calls["train_forward"] if c[6].shape[0] == 128)
+    _, plain_fn, _ = smoke._kernel_tables()
     for fwd, bwd in zip(calls["train_forward"],
                         calls["train_backward_sgd"]):
-        plain = train_ref.train_forward(*fwd)
+        plain = train_ref.train_forward(*fwd[:-2])
+        torch.testing.assert_close(plain_fn["train_forward"](*fwd), plain,
+                                   rtol=0, atol=0)
         torch.testing.assert_close(bwd[12], plain, rtol=0, atol=0)
         assert all(map(smoke._within, smoke._errors(
             "train_forward", [train_ref.train_forward_split_tf32(*fwd)],
             [plain])))
         want = smoke._outputs("train_backward_sgd",
-                              train_ref.train_backward_sgd, bwd)
+                              plain_fn["train_backward_sgd"], bwd)
         got = smoke._outputs("train_backward_sgd",
                              train_ref.train_backward_sgd_split_tf32, bwd)
         assert all(map(smoke._within, smoke._errors("train_backward_sgd",
@@ -423,7 +473,9 @@ def test_chip_smoke_captures_one_training_step(monkeypatch):
     """During a build the training kernels' ``TRAIN_CAPTURE_CALL``-th
     calls are kept with the state they were given cloned: the parameters
     (shared by the two calls of the step) and the velocities, which the
-    later steps update in place; the largest build's call wins."""
+    later steps update in place; the largest build's call wins.  The rows'
+    low parts are not kept (they die with their training) and are made
+    anew from the kept rows for the holds."""
     smoke = _load_smoke()
     monkeypatch.setattr(train_kernel, "train_forward_cuda",
                         lambda *a: torch.zeros(a[0].shape[0], 10))
@@ -437,8 +489,8 @@ def test_chip_smoke_captures_one_training_step(monkeypatch):
     captured: dict = {}
     with smoke.capture_largest_inputs(captured):
         for step in range(smoke.TRAIN_CAPTURE_CALL + 3):
-            train_kernel.train_forward_cuda(*fwd, 0.5)
-            train_kernel.train_backward_sgd_cuda(*bwd, 1e-2, 0.9)
+            _forward(fwd)
+            _backward(bwd)
     assert set(captured) == {"train_forward", "train_backward_sgd"}
     size, f_args = captured["train_forward"]
     assert size == 3 * 10
@@ -449,6 +501,12 @@ def test_chip_smoke_captures_one_training_step(monkeypatch):
         # the state of the captured step: 9 updates before it, 13 in all
         torch.testing.assert_close(got, live - 4.0)
     assert b_args[8] is bwd[8]
+    for args, live in ((f_args, fwd), (b_args, bwd)):
+        assert args[-2:] == (None, None)
+        made = smoke._with_lo(args)
+        assert len(made) == len(args)
+        for got, want in zip(made[-2:], live[-2:]):
+            assert got is not want and torch.equal(got, want)
 
 
 def test_chip_smoke_training_phases_rehearsal_on_cpu(capsys):
@@ -482,3 +540,97 @@ def test_chip_smoke_training_phases_rehearsal_on_cpu(capsys):
         assert f"{name} exact search == brute force on 8 queries" in printed
         assert f"{name} training, kernels vs the plain step" in printed
         assert f"{name} training: 3 steps, 3 validation passes" in printed
+
+
+def test_x_halves_are_made_once_and_sum_to_the_rows():
+    """The rows' TF32 halves the kernels read: hi is the raw row as the
+    tensor cores read it (13 low bits dropped), lo = x − hi is the one copy
+    made (once a training, by ``split_inputs``, which touches nothing
+    else), hi + lo == x bitwise, and the emulation reads both as the tensor
+    cores do; ``chip_smoke.py``'s held calls carry exactly these low parts
+    of their rows."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4000), rng.standard_normal(1000) * 1e-30,
+        rng.standard_normal(1000) * 1e30]).astype(np.float32)).reshape(6, 1000)
+    lo = train_ref.x_lo(x)
+    hi = l2_ref.tf32_truncate(x)
+    assert lo.shape == x.shape and lo.dtype == torch.float32
+    assert torch.equal(hi + lo, x) and torch.equal(x - lo, hi)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (lo * x >= 0).all() and (lo.abs() < x.abs() * 2.0 ** -10).all()
+    tp, vel, inp, ig, il = _step_state(2, 24, 16, 20, 8, 8, 2)
+    split = train_ref.split_inputs(inp)
+    assert inp.xg_lo is None and inp.xl_lo is None
+    assert split.xg is inp.xg and split.xl is inp.xl
+    assert torch.equal(split.xg_lo, train_ref.x_lo(inp.xg))
+    assert torch.equal(split.xl_lo, train_ref.x_lo(inp.xl))
+    got_hi, got_lo = train_ref._halves(inp.xg, inp.xl, ig, il, split.xg_lo,
+                                       split.xl_lo)
+    rows = train_ref._rows(inp.xg, inp.xl, ig, il)
+    assert torch.equal(got_hi, l2_ref.tf32_truncate(rows))
+    assert torch.equal(got_lo, l2_ref.tf32_truncate(rows - got_hi))
+    again = train_ref._halves(inp.xg, inp.xl, ig, il, None, None)
+    assert torch.equal(again[0], got_hi) and torch.equal(again[1], got_lo)
+    smoke = _load_smoke()
+    calls = smoke.train_calls(device="cpu")
+    for fwd, bwd in zip(calls["train_forward"], calls["train_backward_sgd"]):
+        for x_, lo_ in ((fwd[4], fwd[13]), (fwd[5], fwd[14])):
+            assert torch.equal(lo_, train_ref.x_lo(x_))
+        assert all(a is b for a, b in zip(fwd[13:], bwd[15:]))
+
+
+def test_split_tf32_step_follows_the_kernels_orientation():
+    """The emulated layer 1 takes w1's split in registers (w1_lo·x_hi,
+    w1_hi·x_lo, w1_hi·x_hi) and the emulated w1 gradient factors through
+    the relu mask (w2 ⊙ Σ (x·dpred)·M, 40-row stages per 80-row half): on
+    small integers, where every rounding is exact, both equal the plain
+    products; and a batch of 200 rows (a partial second tile) pads the
+    tile with zero rows that add nothing."""
+    F, m, h, R = 2, 24, 16, 160
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-3, 4, (F, R, m)).astype(np.float32))
+    w1 = torch.from_numpy(rng.integers(-3, 4, (F, m, h)).astype(np.float32))
+    b1 = torch.zeros((F, h))
+    hi, lo = l2_ref.split_tf32(x)
+    pre = train_ref._pre_split_tf32(hi, lo, w1, b1)
+    assert torch.equal(pre, torch.bmm(x, w1))
+    w2 = torch.from_numpy(rng.integers(-2, 3, (F, h)).astype(np.float32))
+    dpred = torch.from_numpy(rng.integers(-2, 3, (F, R)).astype(np.float32))
+    want = torch.bmm(x.transpose(1, 2),
+                     dpred[:, :, None] * w2[:, None, :] * (pre > 0))
+    got = train_ref._gw1_split_tf32(x, pre, w2, dpred)
+    assert torch.equal(got, want)
+    part = train_ref._gw1_split_tf32(x[:, :90], pre[:, :90], w2,
+                                     dpred[:, :90])
+    assert torch.equal(part, torch.bmm(
+        x[:, :90].transpose(1, 2),
+        dpred[:, :90, None] * w2[:, None, :] * (pre[:, :90] > 0)))
+
+
+def test_chip_smoke_tc_rounding_cases_tell_the_roundings_apart():
+    """The rounding probe's crafted cases: under the assumed rounding (one
+    rounding a k8 step, toward zero; 13 low operand bits dropped) each
+    gives another result than rounding to nearest or keeping every bit, in
+    both signs and for products in one or both halves of the step; the
+    layouts case is exact under any rounding."""
+    smoke = _load_smoke()
+    names, A, B, C = smoke.tc_rounding_cases()
+    assert A.shape == (len(names), 64, 8) and B.shape == (len(names), 8, 8)
+    want = smoke.tc_rounding_expected(A, B, C)
+    near = smoke.tc_rounding_expected(A, B, C, "nearest")
+    full = smoke.tc_rounding_expected(A, B, C, "full")
+    for i, name in enumerate(names):
+        if name.startswith("layouts"):
+            exact = C[i].astype(np.float64) + A[i].astype(np.float64) @ B[i]
+            assert np.array_equal(want[i], exact.astype(np.float32))
+            assert np.array_equal(near[i], want[i])
+            continue
+        other = near if "rounded" in name or "one rounding" in name else full
+        assert not np.array_equal(want[i], other[i]), name
+    step = names.index("one rounding a step (k = 0, 1)")
+    assert want[step, 0, 0] == np.nextafter(np.float32(1), np.float32(2))
+    assert [n for n in names if "13 low bits" in n] == [
+        "B's 13 low bits dropped (shared memory)",
+        "A's 13 low bits dropped (registers)"]
+    assert "tc_rounding_kernel" in smoke.SPLIT_KERNELS
