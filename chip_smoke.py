@@ -22,16 +22,20 @@
    launched (the launch counters are zeroed just before the build and read
    just after the last search).  The probe and the candidate pass of every
    batch under the default pass are one launch each of the candidate-pass
-   kernel (``leaf_topk``); the cascade replay of every batch and of
+   kernel (``leaf_topk``), the pass on its staged ``wgmma`` instance and
+   the probe on its warp instance (the launches by instance are printed
+   and the staged one asserted); the cascade replay of every batch and of
    the calibration runs as one launch of the replay kernel; every training
    step of every build is one launch each of the two training kernels and
    every validation pass one of ``filter_mlp`` (asserted from the counters:
    no step runs autograd).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
    candidate pass and the replay timed alone on the inputs the engine hands
-   them), and profiles it for the device's busy time, launches and idle
-   share, then the candidate pass alone (asserted: one ``leaf_topk_kernel``
-   launch and nothing else); breaks the
+   them; the pass also held against its plain version there), and profiles
+   it for the device's busy time, launches and idle share, then the
+   candidate pass alone (asserted: one ``leaf_topk_wgmma_kernel`` launch,
+   no warp-instance launch, none of the eager pass's kernels; the item
+   table's torch ops printed with their launches); breaks the
    build's training-data collection (``t_collect``) down by step; profiles
    50 steps of filter training (``training_profile``: wall and device-busy
    time, launches and the top device operations per step); holds the
@@ -99,7 +103,10 @@
    at k = 1, 5, 32, 33 and 257 with ties, +-inf and NaN, shuffled orders,
    Q = 1 and rows apart; the candidate pass at kk = 1 .. 257, max leaf 7 ..
    1000, m = 65 .. 256, Q = 1, empty lists, padding slots and the probe's
-   form), and the filter kernels on their largest call's
+   form, and its staged instance at ``RAGGED_STAGED``: a leaf kept by 1,
+   65 and all 256 queries, leaves of 1 .. 1000 rows, m = 96, 128, 256, kk
+   = 1, 5, 32; each held call prints the instance it took), and the
+   filter kernels on their largest call's
    weights at the Q on either side of the stream design's limit, so every
    instance of both designs is held; ``filter_mlp`` is timed beside the
    fused float32 kernel at its own call.  The training kernels are held on
@@ -257,21 +264,32 @@ DESIGN = {
                            "TMA through a 2-deep ring, SGD between; a batch "
                            "above 128 in 160-row tiles, g_w1 summed in the "
                            "velocity", 2.5),
-    "leaf_topk": ("one warp a (query, survivor leaf) pair, pairs leaf-major "
-                  "over a grid sized to the SMs, most row reads hitting "
-                  "L2; 32 rows a step read "
-                  "straight from the series with 16-byte loads, a "
-                  "transpose-reduce puts row i on lane i; top-kk in "
+    "leaf_topk": ("two instances by the call's shapes.  wgmma (the batch's "
+                  "survivor pass, matmul form, m % 4 == 0, kk <= 32): "
+                  "persistent, (leaf, 64 queries) items made on the "
+                  "device; two pipelines a block, each a producer half "
+                  "(TMA stages of 32 columns x 128 rows, 128-byte swizzle, "
+                  "a 3-stage ring; the rows' lo and |s|^2 made in shared "
+                  "memory) and a consumer warpgroup (split-TF32 wgmma "
+                  "m64n128k8, A = the queries split in registers, each "
+                  "32-column stage summed from zero; per-lane top-kk "
+                  "lists, in registers for kk <= 8, placed by rank across "
+                  "the quad).  warp (the probe, direct, m % 4 != 0, kk > "
+                  "32): one warp a (query, leaf) pair, pairs leaf-major, "
+                  "32 rows a step straight from the series, top-kk in "
                   "registers for kk <= 32, in the output row beyond", None),
 }
-#: the candidate pass's ``matmul`` form is SIMT float32; its products at
-#: float32 accuracy on the tensor cores would take split TF32's 3 passes
+#: the candidate pass's ``matmul`` form: its survivor pass runs on the
+#: split-TF32 wgmma instance (3 passes: float32 accuracy on the tensor
+#: cores), the bound its times are held against; the probe's warp instance
+#: is SIMT float32, against the same passes for comparison
 LEAF_TOPK_SPLIT_PASSES = 3
 #: the redesigned kernels, whose ptxas report must show no spills
 SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
-                 "leaf_topk_kernel", "tc_rounding_kernel")
+                 "leaf_topk_kernel", "leaf_topk_wgmma_kernel",
+                 "tc_rounding_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
@@ -319,8 +337,15 @@ def _launch_counters():
     return {k: v for table in _counter_tables() for k, v in table.items()}
 
 
+def _instance_launches() -> dict:
+    """The candidate pass's launches by instance (``kernel.instance``)."""
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
+    return dict(leaf_kernel.INSTANCE_LAUNCHES)
+
+
 def _zero_counters() -> None:
-    for table in _counter_tables():
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
+    for table in _counter_tables() + (leaf_kernel.INSTANCE_LAUNCHES,):
         for name in table:
             table[name] = 0
 
@@ -487,6 +512,12 @@ def _check_launches(launches: dict, expected, label: str,
     path must have launched."""
     log(f"launches on the {label} path: " + json.dumps(launches))
     missing = [k for k in expected if launches.get(k, 0) <= 0]
+    if "leaf_topk" in expected:         # the survivor passes' instance
+        by_instance = _instance_launches()
+        log(f"  leaf_topk launches by instance on the {label} path: "
+            + json.dumps(by_instance))
+        if by_instance["wgmma"] <= 0:
+            missing.append("leaf_topk (the wgmma instance)")
     assert not (on_card and missing), \
         f"kernels never launched on the {label} path: {missing}"
 
@@ -960,10 +991,10 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
 
 def _kernel_name(name: str) -> str:
     """A device event's kernel name without ``void``, the anonymous
-    namespace the port's kernels live in, template arguments and
-    parameters."""
+    namespace the port's kernels live in (and the candidate pass's
+    ``staged`` namespace within it), template arguments and parameters."""
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
-    return name.split("<")[0].split("(")[0]
+    return name.removeprefix("staged::").split("<")[0].split("(")[0]
 
 
 def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
@@ -997,6 +1028,9 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     finally:
         engine.replay_cascade = run_replay
         engine._bucket_leaf_topk = run_pass
+    if torch.device(dev).type == "cuda":
+        _hold_leaf_topk(pass_args[0], f"{label}leaf_topk (the k={k}, "
+                        f"{target} batch's survivor pass)")
     layers = {
         "search": lambda: lfi.search(queries, k=k, quality_target=target,
                                      device=dev),
@@ -1054,7 +1088,7 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     # beside the sort of its pair order, and none of the gathers, GEMVs and
     # row sorts the pass ran as before the kernel
     _sync(dev)
-    counters = _launch_counters()
+    counters, instances = _launch_counters(), _instance_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1063,17 +1097,26 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     _, alone = _device_kernels(prof)
     launched = {n: c - counters[n] for n, c in _launch_counters().items()
                 if c != counters[n]}
+    launched_by = {n: c - instances[n]
+                   for n, c in _instance_launches().items()}
     log(f"{label}candidate pass alone, twice: launches by counter "
-        f"{json.dumps(launched)}; profiled (ms, launches) "
+        f"{json.dumps(launched)} (by instance {json.dumps(launched_by)}); "
+        "profiled (ms, launches) "
         + (json.dumps({n: [round(t, 4), c] for n, (t, c) in alone.items()})
            if alone else "no kernel events recorded"))
     if torch.device(dev).type == "cuda":
         assert launched == {"leaf_topk": 2}, launched
+        assert launched_by == {"wgmma": 2, "warp": 0}, launched_by
         assert not alone or (
-            alone.get("leaf_topk_kernel", (0.0, 0))[1] == 2
+            alone.get("leaf_topk_wgmma_kernel", (0.0, 0))[1] == 2
+            and "leaf_topk_kernel" not in alone
             and not any(bad in n for n in alone
                         for bad in EAGER_PASS_KERNELS)), \
             f"the candidate pass launched {alone}"
+        log(f"{label}candidate pass alone: the item table's and the "
+            "order's torch ops (launches over the two passes): "
+            + json.dumps({n: c for n, (_, c) in alone.items()
+                          if n != "leaf_topk_wgmma_kernel"}))
     return {**ms, "profiled_wall_ms": wall,
             "device_busy_ms": busy if kernels else None,
             "kernel_launches": len(kernels),
@@ -1766,9 +1809,11 @@ def _hold_leaf_topk(args, label: str) -> dict:
     torch.cuda.synchronize()
     e = _leaf_topk_errors(args, got, want)
     pairs, pair_rows, _ = _leaf_topk_work(args)
+    which = _leaf_topk_instance(args)
     shapes = (f"{tuple(args[3].shape)} queries x {tuple(args[4].shape)} "
               f"lists, L={args[1].shape[0]}, max_leaf={args[7]}, "
-              f"kk={args[6]}, {args[8]}, {pairs} pairs, {pair_rows} rows")
+              f"kk={args[6]}, {args[8]}, {pairs} pairs, {pair_rows} rows, "
+              f"the {which} instance")
     log(f"kernel {label} at {shapes}: max_abs_err={e['max_abs_err']:.3g} "
         f"(tolerance {e['tolerance']:.3g} absolute = 1e-4 + 1e-5 x "
         f"max|plain|); +inf where plain {e['same_inf']}, id -1 there "
@@ -1776,9 +1821,15 @@ def _hold_leaf_topk(args, label: str) -> dict:
         f"{args[9].numel()} places, {e['near_ties']} of them near-ties; "
         f"{e['duplicates']} repeated rows")
     assert e["ok"], f"{label} disagrees: {e}"
-    return {"shapes": shapes, "max_abs_err": e["max_abs_err"],
-            "tolerance": e["tolerance"], "id_diff": e["id_diff"],
-            "near_ties": e["near_ties"]}
+    return {"shapes": shapes, "instance": which,
+            "max_abs_err": e["max_abs_err"], "tolerance": e["tolerance"],
+            "id_diff": e["id_diff"], "near_ties": e["near_ties"]}
+
+
+def _leaf_topk_instance(args) -> str:
+    """The candidate-pass instance a call takes (``kernel.instance``)."""
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
+    return leaf_kernel.instance(args[0], args[3], args[6], args[8], args[11])
 
 
 def _plain_mlp(q, w1, b1, w2, b2, ym, ys, off, s1=None, s2=None):
@@ -2026,9 +2077,11 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     design, passes = DESIGN[name]
     whose = "split design's"
     if name == "leaf_topk" and args[8] == "matmul":
-        # a SIMT kernel, but its products could run on the tensor cores:
-        # the bound a split-TF32 design of the same form would have
-        passes, whose = LEAF_TOPK_SPLIT_PASSES, "a split-TF32 design's"
+        # the survivor pass's split-TF32 wgmma instance; the probe's warp
+        # instance (SIMT) is held against the same bound
+        passes = LEAF_TOPK_SPLIT_PASSES
+        if _leaf_topk_instance(args) == "warp":
+            whose = "a split-TF32 design's"
     bound_ms, bound_by = _bound(name, args)
     split_ms, split_by, tf32_ms, tf32_by = (
         (None,) * 4 if passes is None
@@ -2093,6 +2146,18 @@ RAGGED_LEAF_TOPK = ((1, 300, 245, 256, 5, 300, True),
                     (9, 40, 1000, 128, 33, 40, True),
                     (5, 30, 1000, 65, 257, 12, True),
                     (64, 50, 245, 128, 5, 1, False))
+#: (Q, m, kk, leaf sizes, queries keeping each leaf, queries with an empty
+#: list) of the staged (wgmma) instance's held survivor passes: a leaf kept
+#: by 1, by 65 (two 64-query items) and by all 256 queries, and by none;
+#: leaves of 1, 7, 64 (one 64-row tile), 65, 129 (a 128-row tile, then a
+#: 64-row one), 245, 300 and 1000 rows (eight tiles); m = 256, 96 (deep)
+#: and 128 (sift); kk = 5, 1 and 32 (its lists' largest); padding slots
+#: inside counts, real ids past them, empty lists
+RAGGED_STAGED = ((256, 256, 5, (1000, 7, 245, 1, 64, 129),
+                  (1, 65, 256, 7, 0, 100), 0),
+                 (200, 96, 1, (7, 1000, 65, 128, 200), (1, 65, 130, 3, 64),
+                  10),
+                 (100, 128, 32, (1000, 300, 7, 129), (65, 1, 33, 90), 10))
 
 
 #: (F, m, h, batch) of the training kernels' held calls: one filter and
@@ -2194,6 +2259,55 @@ def leaf_topk_calls(device: str = "cuda") -> list:
                       torch.full((Q, rows, kk), math.inf, device=device),
                       torch.full((Q, rows, kk), -1, dtype=torch.int64,
                                  device=device), scatter))
+    return calls
+
+
+def staged_leaf_topk_calls(device: str = "cuda") -> list:
+    """The staged instance's held calls (numpy seed 5), at
+    ``RAGGED_STAGED``, survivor passes in the ``matmul`` form: z-normalized
+    random-walk rows, some repeated within their leaf (exact ties), queries
+    near rows (noise 0.2); leaf l kept by the given number of queries
+    (drawn from those with a list); each query's list its leaves in a random
+    order, every third with a padding id (L) inside its count, odd queries
+    with real ids past it; outputs +inf/−1."""
+    import torch
+    rng = np.random.default_rng(5)
+    calls = []
+    for Q, m, kk, sizes, keep, n_empty in RAGGED_STAGED:
+        sizes = np.asarray(sizes)
+        L = len(sizes)
+        start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        n = int(sizes.sum())
+        x = rng.standard_normal((n + int(sizes.max()), m)).cumsum(-1)
+        x = (x - x.mean(-1, keepdims=True)) / x.std(-1, keepdims=True)
+        for leaf in np.flatnonzero(sizes > 2):
+            r = start[leaf] + rng.integers(0, sizes[leaf] - 1)
+            x[r + 1] = x[r]
+        q = x[rng.integers(0, n, Q)] + 0.2 * rng.standard_normal((Q, m))
+        kept = np.zeros((Q, L), bool)
+        for leaf, n_keep in enumerate(keep):
+            kept[rng.choice(Q - n_empty, n_keep, replace=False), leaf] = True
+        C = L + 2
+        leaves = np.full((Q, C), L, np.int64)
+        counts = np.zeros(Q, np.int64)
+        for i in range(Q):
+            lst = list(rng.permutation(np.flatnonzero(kept[i])))
+            if lst and i % 3 == 0:
+                lst.insert(int(rng.integers(0, len(lst) + 1)), L)
+            counts[i] = len(lst)
+            leaves[i, :len(lst)] = lst
+            if i % 2:
+                leaves[i, len(lst):] = rng.integers(0, L, C - len(lst))
+
+        def t(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                                   device=device)
+        calls.append((t(x, np.float32), t(start, np.int64),
+                      t(sizes, np.int64), t(q, np.float32), t(leaves),
+                      t(counts), kk, int(sizes.max()), "matmul",
+                      torch.full((Q, L + 1, kk), math.inf, device=device),
+                      torch.full((Q, L + 1, kk), -1, dtype=torch.int64,
+                                 device=device), True))
     return calls
 
 
@@ -2329,6 +2443,7 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls()}
     ragged["leaf_topk"] = [_leaf_topk_fresh(c, impl)
                            for c in leaf_topk_calls()
+                           + staged_leaf_topk_calls()
                            for impl in leaf_ref.IMPLS]
     ragged["filter_mlp"] = [c[:5] for c in ragged["fused_filter_mlp"]]
     rows = []
@@ -2375,11 +2490,13 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
         if name == "leaf_topk":
-            keep = ("max_abs_err", "id_diff", "near_ties", "ms", "graph_ms",
-                    "plain_ms", "bound_ms", "bound_by", "split_bound_ms",
-                    "pair_bound_ms")
+            keep = ("instance", "max_abs_err", "id_diff", "near_ties", "ms",
+                    "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                    "split_bound_ms", "pair_bound_ms")
             row.update(pair_bound_ms=res["pair_bound_ms"],
-                       id_diff=res["id_diff"], near_ties=res["near_ties"])
+                       id_diff=res["id_diff"], near_ties=res["near_ties"],
+                       instance=res["instance"])
+            assert res["instance"] == "wgmma", res["instance"]
             direct = _check_call(name, _leaf_topk_fresh(args, "direct"),
                                  "leaf_topk (direct)", power)
             row["direct"] = {k: direct[k] for k in keep}
@@ -2543,8 +2660,11 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
     from repro_torch.kernels.filter_train import kernel as train_kernel
+    from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
     log("  dynamic shared memory a block (bytes): "
-        + json.dumps(train_kernel.kernel_smem()))
+        + json.dumps(train_kernel.kernel_smem()) + "; leaf_topk_wgmma "
+        "(bytes, ring stages) by kk: " + json.dumps(
+            {kk: leaf_kernel.wgmma_smem(kk) for kk in (1, 5, 32)}))
 
     captured: dict = {}
     phases: dict = {}

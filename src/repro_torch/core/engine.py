@@ -19,10 +19,13 @@ The candidate pass is the reference's jitted ``_bucket_leaf_topk``.  Here
 :func:`_bucket_leaf_topk` takes each query's survivor list (ascending lb)
 and count (:func:`survivor_lists`, the same arguments on both devices) and
 runs on the card as one launch of the hand-written candidate-pass kernel
-(``kernels/leaf_topk``, one warp a (query, leaf) pair, the pairs
-leaf-major, rows read straight from the series), and on the CPU as that
-kernel's plain version, the port's earlier bucketed torch code; the probe
-is the same call with one leaf a query.  The default card path has no host sync before the replay.
+(``kernels/leaf_topk``): the survivor pass on its staged instance (each
+leaf's rows staged once by TMA for up to 64 of the queries that keep it,
+the products on split-TF32 ``wgmma``), the probe, which is the same call
+with one leaf a query, on its warp instance (one warp a (query, leaf)
+pair, rows read straight from the series); on the CPU as that kernel's
+plain version, the port's earlier bucketed torch code.  The default card
+path has no host sync before the replay.
 
 The cascade is a ``lax.scan`` over the L visit positions in the reference.
 Here :func:`replay_cascade` runs it on the card as one launch of the

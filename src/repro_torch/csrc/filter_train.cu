@@ -923,32 +923,11 @@ train_backward_sgd_kernel(__grid_constant__ const CUtensorMap map_w1,
 
 // ---- host side -----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, found through the runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // the 3D view (h, m, F) of a (F, m, h) float32 tensor in boxes of 32 lanes
 // x `rows` rows of m, 128-byte swizzle, zeros outside
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int F, int m,
                        int h, int rows) {
-  const EncodeTiled fn = encoder();
+  const hopper::EncodeTiled fn = hopper::encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)h, (cuuint64_t)m, (cuuint64_t)F};
   const cuuint64_t strides[2] = {(cuuint64_t)h * 4, (cuuint64_t)m * h * 4};

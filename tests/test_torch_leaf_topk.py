@@ -277,7 +277,9 @@ def test_wrapper_refuses_before_any_launch(bad, err):
 def test_chip_smoke_holds_and_counts_the_pass():
     """chip_smoke.py builds the pass's source, holds it with the kernels'
     limit, counts its launches on the DSTree, iSAX and grouped paths (not
-    search_early's, whose walk does not reach it) and rejects a spill."""
+    search_early's, whose walk does not reach it) and rejects a spill of
+    either instance; the profile's name of the staged instance drops its
+    namespaces."""
     smoke = _load_smoke()
     source, replaces, tol, _ = smoke.KERNELS["leaf_topk"]
     assert (ROOT / source).exists() and tol == (ATOL, RTOL)
@@ -285,12 +287,18 @@ def test_chip_smoke_holds_and_counts_the_pass():
     assert "src/repro/core/engine.py:271" in replaces
     assert smoke.DESIGN["leaf_topk"][1] is None
     assert "leaf_topk_kernel" in smoke.SPLIT_KERNELS
+    assert "leaf_topk_wgmma_kernel" in smoke.SPLIT_KERNELS
+    assert smoke._kernel_name(
+        "void (anonymous namespace)::staged::leaf_topk_wgmma_kernel<5>("
+        "CUtensorMap_st, (anonymous namespace)::staged::Args)") \
+        == "leaf_topk_wgmma_kernel"
     for path in (smoke.DSTREE_KERNELS, smoke.ISAX_KERNELS,
                  smoke.GROUPED_KERNELS):
         assert "leaf_topk" in path
     assert "leaf_topk" not in smoke.SEARCH_KERNELS
     text = (ROOT / source).read_text()
     assert "src/repro/core/engine.py:271" in text
+    assert "leaf_topk_wgmma_kernel" in text
     assert '"leaf_topk"]' in (ROOT / "chip_smoke.py").read_text()
 
 
@@ -442,3 +450,210 @@ def test_chip_smoke_captures_the_pass_and_the_probe(indexes, queries_small,
     assert captured["leaf_topk"][1][6] == 5 and captured["leaf_topk"][1][11]
     assert captured["leaf_topk@probe"][1][4].shape == (8, 1)
     assert leaf_kernel.leaf_topk_cuda is ref.leaf_topk
+
+
+# ---------------------------------------------------------------------------
+# the staged (wgmma) instance: its item table, its choice, its arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _lists(case: str, rng):
+    """(leaves, counts, L) survivor lists for an item-table case."""
+    G = leaf_kernel.GROUP
+    if case == "random":            # padding (id L) and real ids past counts
+        Q, C, L = 23, 9, 13
+        leaves = rng.integers(0, L + 1, (Q, C))
+        counts = rng.integers(0, C + 1, Q)
+    elif case == "empty":           # every list empty
+        Q, C, L = 5, 4, 6
+        leaves = np.full((Q, C), L)
+        counts = np.zeros(Q, np.int64)
+    elif case == "zero_counts":     # real ids, but counts of 0 for most
+        Q, C, L = 9, 5, 7
+        leaves = np.stack([rng.permutation(L)[:C] for _ in range(Q)])
+        counts = np.where(np.arange(Q) % 3 == 0, C, 0)
+    elif case == "kept_by_all":     # leaf 2 in every list
+        Q, C, L = 40, 6, 10
+        leaves = np.stack([np.r_[2, rng.choice([x for x in range(L)
+                                                if x != 2], C - 1, False)]
+                           for _ in range(Q)])
+        counts = np.full(Q, C)
+    else:                           # "over_group": leaves kept by > G queries
+        Q, C, L = 3 * G + 5, 3, 4
+        leaves = np.stack([rng.permutation(L)[:C] for _ in range(Q)])
+        counts = rng.integers(1, C + 1, Q)
+    return (torch.as_tensor(leaves, dtype=torch.int64),
+            torch.as_tensor(counts, dtype=torch.int64), L)
+
+
+def _decode_items(pair_order, bounds, item_end, item_leaf, C: int,
+                  group: int) -> list:
+    """The items as the staged kernel finds them: item i's leaf from
+    item_leaf, its queries from bounds and the order."""
+    items = []
+    n = int(item_end[-1]) if len(item_end) else 0
+    assert n <= item_leaf.numel()
+    for i in range(n):
+        leaf = int(item_leaf[i])
+        assert item_end[leaf] > i and (leaf == 0 or item_end[leaf - 1] <= i)
+        first = int(item_end[leaf - 1]) if leaf else 0
+        pair0 = int(bounds[leaf]) + group * (i - first)
+        nq = min(group, int(bounds[leaf + 1]) - pair0)
+        slots = pair_order[pair0:pair0 + nq].tolist()
+        items.append((leaf, slots, [s // C for s in slots]))
+    return items
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "zero_counts",
+                                  "kept_by_all", "over_group"])
+def test_item_table_covers_every_slot_once(case):
+    """The staged instance's items (``kernel.item_table``, decoded as the
+    kernel decodes them; item_leaf names each item's leaf, and L past the
+    last): every slot to compute (below its count, id in
+    [0, L)) lies in exactly one item and no other slot in any; a leaf kept
+    by n_q queries has ceil(n_q / G) items; no item crosses leaves; the
+    queries of an item are ascending."""
+    G = leaf_kernel.GROUP
+    leaves, counts, L = _lists(case, np.random.default_rng(len(case)))
+    Q, C = leaves.shape
+    pair_order, bounds, item_end, item_leaf = leaf_kernel.item_table(
+        leaves, counts, L)
+    assert bounds.dtype == item_end.dtype == item_leaf.dtype == torch.int64
+    assert bounds.shape == (L + 1,) and item_end.shape == (L,)
+    n = int(item_end[-1]) if L else 0
+    assert (item_leaf[n:] == L).all()
+    assert sorted(pair_order.tolist()) == list(range(Q * C))
+    want = sorted(q * C + c for q in range(Q) for c in range(C)
+                  if c < counts[q] and 0 <= leaves[q, c] < L)
+    items = _decode_items(pair_order, bounds, item_end, item_leaf, C, G)
+    got = sorted(s for _, slots, _ in items for s in slots)
+    assert got == want
+    n_q = np.bincount([int(leaves.flatten()[s]) for s in want],
+                      minlength=L)
+    per_leaf = np.bincount([leaf for leaf, _, _ in items], minlength=L)
+    np.testing.assert_array_equal(per_leaf, -(-n_q // G))
+    for leaf, slots, queries in items:
+        assert 1 <= len(slots) <= G
+        assert all(int(leaves.flatten()[s]) == leaf for s in slots)
+        assert queries == sorted(queries)
+    if case == "kept_by_all":
+        assert per_leaf[2] == 1 and n_q[2] == Q
+    if case == "over_group":
+        assert (per_leaf[n_q > G] >= 2).all() and (n_q > G).any()
+
+
+@pytest.mark.parametrize("what, want", [
+    (dict(), "wgmma"),                       # the batch's survivor pass
+    (dict(kk=32), "wgmma"),
+    (dict(m=96), "wgmma"),
+    (dict(scatter=False), "warp"),           # the probe
+    (dict(dist_impl="direct"), "warp"),
+    (dict(m=65), "warp"),                    # m % 4 != 0: no TMA map
+    (dict(kk=33), "warp"),                   # beyond the lists' room
+    (dict(offset=1), "warp"),                # series not 16-byte aligned
+])
+def test_instance_follows_the_call_shapes(what, want):
+    """``kernel.instance`` picks the staged instance for the survivor pass
+    in the matmul form with m % 4 == 0, aligned rows and queries and kk <=
+    32, and the warp instance for every other call."""
+    m = what.get("m", 256)
+    base = torch.zeros(4 * 64 * m + 16)
+    off = what.get("offset", 0)
+    series = base[off:off + 64 * m].view(64, m)
+    queries = torch.zeros((3, m))
+    got = leaf_kernel.instance(series, queries, what.get("kk", 5),
+                               what.get("dist_impl", "matmul"),
+                               what.get("scatter", True))
+    assert got == want
+
+
+@pytest.fixture(scope="module")
+def ref_trees(randwalk_small):
+    S = randwalk_small[:2000]
+    return {"dstree": tree.build_dstree(S, leaf_capacity=64),
+            "isax": tree.build_isax(S, leaf_capacity=64)}
+
+
+@pytest.mark.parametrize("kk", [1, 5, 32])
+@pytest.mark.parametrize("backbone", ["dstree", "isax"])
+def test_split_tf32_emulation_matches_reference(ref_trees, queries_small,
+                                                backbone, kk):
+    """The staged instance's arithmetic, emulated (``ref.
+    leaf_topk_split_tf32``: the query split, the rows' trunc and lo, three
+    TF32 products a k8 step rounded toward zero, each 32-column stage
+    summed from zero into a float32 total), on a reference-built index and
+    survivor lists the engine builds from the reference's bounds: within
+    the card's hold (``_leaf_topk_errors``: 1e-4 + 1e-5·max|plain|, ids
+    equal except at near-ties) of the JAX package's matmul pass."""
+    smoke = _load_smoke()
+    idx = ref_trees[backbone]
+    q = queries_small[:16]
+    d_lb = np.array(bounds.lower_bounds(idx, jnp.asarray(q)))
+    L = d_lb.shape[1]
+    mask = torch.from_numpy(d_lb <= np.quantile(d_lb, 0.4, axis=1,
+                                                keepdims=True))
+    order = torch.argsort(torch.from_numpy(d_lb), dim=1, stable=True)
+    leaves, counts = engine.survivor_lists(mask, order)
+    series = torch.from_numpy(np.asarray(idx.series))
+    start = torch.from_numpy(np.asarray(idx.leaf_start)).long()
+    sizes = torch.from_numpy(np.asarray(idx.leaf_size)).long()
+    kk = min(kk, idx.max_leaf_size)
+    call = (series, start, sizes, torch.from_numpy(q), leaves, counts, kk,
+            idx.max_leaf_size, "matmul",
+            torch.full((16, L + 1, kk), np.inf),
+            torch.full((16, L + 1, kk), -1, dtype=torch.int64), True)
+    assert smoke._leaf_topk_instance(call) == "wgmma"
+    slot = torch.arange(L)
+    lists = torch.where(slot < counts[:, None], leaves, L).numpy()
+    want_d, want_i = _reference((series.numpy(), start.numpy(),
+                                 sizes.numpy(), q, lists), kk,
+                                idx.max_leaf_size, "matmul")
+    exp_d = np.full((16, L + 1, kk), np.inf, np.float32)
+    exp_i = np.full((16, L + 1, kk), -1, np.int64)
+    for qi in range(16):
+        exp_d[qi, lists[qi]] = want_d[qi]
+        exp_i[qi, lists[qi]] = want_i[qi]
+    exp_d[:, L], exp_i[:, L] = np.inf, -1
+    got = ref.leaf_topk_split_tf32(*call)
+    errs = smoke._leaf_topk_errors(
+        call, got, (torch.from_numpy(exp_d), torch.from_numpy(exp_i)))
+    assert errs["ok"], errs
+    assert int(counts.sum()) > 16 and np.isfinite(exp_d).any()
+
+
+@pytest.mark.parametrize("n", range(3))
+def test_chip_smoke_staged_calls(n):
+    """chip_smoke.py's held calls of the staged instance (a leaf kept by 1,
+    65 and all 256 queries, leaves of 1 .. 1000 rows, m = 96, 128, 256, kk
+    = 1, 5, 32, empty lists, padding slots): each takes the wgmma instance;
+    the plain version the card holds it to agrees with the JAX package's
+    pass, and the emulated arithmetic with the plain version, under the
+    card's hold."""
+    smoke = _load_smoke()
+    call = smoke.staged_leaf_topk_calls("cpu")[n]
+    series, start, sizes, q, leaves, counts, kk, max_leaf = call[:8]
+    assert smoke._leaf_topk_instance(call) == "wgmma"
+    L = start.shape[0]
+    slot = torch.arange(leaves.shape[1])
+    lists = torch.where(slot < counts[:, None], leaves, L).numpy()
+    Q = lists.shape[0]
+    kept = np.bincount(lists[lists < L], minlength=L)
+    keep, n_empty = smoke.RAGGED_STAGED[n][4:]
+    np.testing.assert_array_equal(kept, keep)
+    assert (counts == 0).sum() >= n_empty
+    want_d, want_i = _reference((series.numpy(), start.numpy(),
+                                 sizes.numpy(), q.numpy(), lists), kk,
+                                max_leaf, "matmul")
+    exp_d = np.full((Q, L + 1, kk), np.inf, np.float32)
+    exp_i = np.full((Q, L + 1, kk), -1, np.int64)
+    for qi in range(Q):
+        exp_d[qi, lists[qi]] = want_d[qi]
+        exp_i[qi, lists[qi]] = want_i[qi]
+    exp_d[:, L], exp_i[:, L] = np.inf, -1
+    plain = ref.leaf_topk(*smoke._leaf_topk_fresh(call))
+    errs = smoke._leaf_topk_errors(
+        call, plain, (torch.from_numpy(exp_d), torch.from_numpy(exp_i)))
+    assert errs["ok"], errs
+    emulated = ref.leaf_topk_split_tf32(*smoke._leaf_topk_fresh(call))
+    errs = smoke._leaf_topk_errors(call, emulated, plain)
+    assert errs["ok"], errs
