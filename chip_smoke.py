@@ -104,8 +104,9 @@
    Q = 1 and rows apart; the candidate pass at kk = 1 .. 257, max leaf 7 ..
    1000, m = 65 .. 256, Q = 1, empty lists, padding slots and the probe's
    form, and its staged instance at ``RAGGED_STAGED``: a leaf kept by 1,
-   65 and all 256 queries, leaves of 1 .. 1000 rows, m = 96, 128, 256, kk
-   = 1, 5, 32; each held call prints the instance it took), and the
+   65 and all 256 queries, leaves of 0 .. 1000 rows, m = 64 .. 256, kk
+   = 1 .. 8 (one register instance each) and 32; each held call prints
+   the instance it took), and the
    filter kernels on their largest call's
    weights at the Q on either side of the stream design's limit, so every
    instance of both designs is held; ``filter_mlp`` is timed beside the
@@ -506,16 +507,18 @@ def _brute_force_check(lfi, queries: np.ndarray, exact_results,
         f"(k={'/'.join(map(str, ks))}, {len(exact_results)} exact run(s))")
 
 
-def _check_launches(launches: dict, expected, label: str,
-                    on_card: bool) -> None:
-    """Print the path's launch counts; on the card, every kernel of the
-    path must have launched."""
+def _check_launches(launches: dict, by_instance: dict, expected,
+                    label: str, on_card: bool) -> None:
+    """Print the path's launch counts, in all and the candidate pass's by
+    instance, both read together right after the path's run; on the card,
+    every kernel of the path must have launched."""
     log(f"launches on the {label} path: " + json.dumps(launches))
     missing = [k for k in expected if launches.get(k, 0) <= 0]
     if "leaf_topk" in expected:         # the survivor passes' instance
-        by_instance = _instance_launches()
         log(f"  leaf_topk launches by instance on the {label} path: "
             + json.dumps(by_instance))
+        assert sum(by_instance.values()) == launches["leaf_topk"], \
+            (by_instance, launches["leaf_topk"])
         if by_instance["wgmma"] <= 0:
             missing.append("leaf_topk (the wgmma instance)")
     assert not (on_card and missing), \
@@ -686,7 +689,7 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
                     results[(impl or "default", k, name)] = (r, wall)
                     marks[(impl or "default", k, name)] = tuple(
                         b - a for a, b in zip(before, _host_marks(device)))
-    launches = _launch_counters()
+    launches, by_instance = _launch_counters(), _instance_launches()
     log(f"the warm-up batch (default, k=1, exact) {warm * 1e3:.1f} ms; new "
         "allocator segments (cudaMalloc) and garbage collections in each "
         "timed batch: " + ", ".join(
@@ -704,7 +707,8 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
     _brute_force_check(lfi, queries, [results[(impl, 5, "exact")][0]
                                       for impl in ("default", "pairwise")],
                        n_brute, "")
-    _check_launches(launches, DSTREE_KERNELS, "DSTree", on_card)
+    _check_launches(launches, by_instance, DSTREE_KERNELS, "DSTree",
+                    on_card)
     _check_build_launches(launches, lfi, "dstree ", on_card)
     return {"launches": launches, "results": results, "lfi": lfi,
             "queries": queries, "targets": targets}
@@ -741,15 +745,16 @@ def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
                            device=device)
             _sync(device)
             results[name] = (r, time.perf_counter() - t0)
-    launches = _launch_counters()
+    launches, by_instance = _launch_counters(), _instance_launches()
     for name, (r, wall) in results.items():
         assert np.isfinite(r.dists).all(), f"non-finite dists {name}"
         log(_search_line(f"dstree d={2 * n_segments} k=5 target={name:5s}",
                          r, results["exact"][0], wall, n_queries))
     _brute_force_check(lfi, queries, [results["exact"][0]], n_queries,
                        f"dstree d={2 * n_segments} ")
-    _check_launches(launches, ("box_lb", "fused_filter_mlp", "replay",
-                               "leaf_topk") + BUILD_KERNELS,
+    _check_launches(launches, by_instance,
+                    ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
+                    + BUILD_KERNELS,
                     f"DSTree d={2 * n_segments}", on_card)
     _check_build_launches(launches, lfi, f"dstree d={2 * n_segments} ",
                           on_card)
@@ -799,7 +804,7 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
                     walls.append(time.perf_counter() - t0)
                 results[(k, name)] = (_stack_results(rs, idx.n_leaves),
                                       np.asarray(walls))
-    launches = _launch_counters()
+    launches, by_instance = _launch_counters(), _instance_launches()
 
     for (k, name), (r, walls) in results.items():
         exact = results[(k, "exact")][0]
@@ -822,7 +827,8 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
     _brute_force_check(lfi, queries, [results[(k, "exact")][0]
                                       for k in (1, 5)],
                        n_early, "search_early ")
-    _check_launches(launches, SEARCH_KERNELS, "search_early", on_card)
+    _check_launches(launches, by_instance, SEARCH_KERNELS, "search_early",
+                    on_card)
     return {"launches": launches, "results": results}
 
 
@@ -849,7 +855,7 @@ def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
                 tuner=lfi.tuner, device=device)
             _sync(device)
             results[k] = (r, time.perf_counter() - t0)
-    launches = _launch_counters()
+    launches, by_instance = _launch_counters(), _instance_launches()
 
     n = len(queries)
     for k, (grp, wall) in results.items():
@@ -868,7 +874,8 @@ def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
                                    atol=1e-6)
         assert np.abs(vec.searched - grp.searched).max() <= 2
         assert neq <= 0.02, f"{neq} of the ids differ beyond ties"
-    _check_launches(launches, GROUPED_KERNELS, "grouped", on_card)
+    _check_launches(launches, by_instance, GROUPED_KERNELS, "grouped",
+                    on_card)
     return {"launches": launches, "results": results}
 
 
@@ -908,8 +915,9 @@ def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
             assert all(np.isfinite(v) for v in
                        payload["parity_max_abs_err"].values())
             payloads.append(payload)
-    launches = _launch_counters()
-    _check_launches(launches, SUITE_KERNELS, "filter suite", on_card)
+    launches, by_instance = _launch_counters(), _instance_launches()
+    _check_launches(launches, by_instance, SUITE_KERNELS, "filter suite",
+                    on_card)
     return {"launches": launches, "payloads": payloads}
 
 
@@ -965,7 +973,7 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
                     _sync(device)
                     results[(payload, k, name)] = (
                         r, time.perf_counter() - t0)
-    launches = _launch_counters()
+    launches, by_instance = _launch_counters(), _instance_launches()
 
     for (payload, k, name), (r, wall) in results.items():
         exact = results[(payload, k, "exact")][0]
@@ -983,7 +991,7 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
     _brute_force_check(lfi, queries, [results[(p, 5, "exact")][0]
                                       for p in PAYLOADS],
                        n_brute, "isax ")
-    _check_launches(launches, ISAX_KERNELS, "iSAX", on_card)
+    _check_launches(launches, by_instance, ISAX_KERNELS, "iSAX", on_card)
     _check_build_launches(launches, lfi, "isax ", on_card)
     return {"launches": launches, "results": results, "lfi": lfi,
             "queries": queries}
@@ -1507,6 +1515,7 @@ def run_datasets(*, n: int = 200_000, n_queries: int = 64,
                 _sync(device)
                 results[(k, tname)] = (r, time.perf_counter() - t0)
         launches = _launch_counters()
+        by_instance = _instance_launches()
         for (k, tname), (r, wall) in results.items():
             assert r.dists.shape == (n_queries, k), r.dists.shape
             assert np.isfinite(r.dists).all(), f"non-finite dists {name}"
@@ -1515,7 +1524,8 @@ def run_datasets(*, n: int = 200_000, n_queries: int = 64,
         _brute_force_check(lfi, queries, [results[(k, "exact")][0]
                                           for k in (1, 5)],
                            n_queries, f"{name} ")
-        _check_launches(launches, DSTREE_KERNELS, name, on_card)
+        _check_launches(launches, by_instance, DSTREE_KERNELS, name,
+                        on_card)
         _check_build_launches(launches, lfi, f"{name} ", on_card)
 
         t0 = time.perf_counter()
@@ -2151,13 +2161,17 @@ RAGGED_LEAF_TOPK = ((1, 300, 245, 256, 5, 300, True),
 #: by 1, by 65 (two 64-query items) and by all 256 queries, and by none;
 #: leaves of 1, 7, 64 (one 64-row tile), 65, 129 (a 128-row tile, then a
 #: 64-row one), 245, 300 and 1000 rows (eight tiles); m = 256, 96 (deep)
-#: and 128 (sift); kk = 5, 1 and 32 (its lists' largest); padding slots
-#: inside counts, real ids past them, empty lists
+#: and 128 (sift); kk = 5, 1 and 32 (the shared-memory lists' largest);
+#: padding slots inside counts, real ids past them, empty lists; then each
+#: other register instance's kk (2, 3, 4, 6, 7, 8: an instance for each kk
+#: <= 8) at m = 64 on leaves of 300, 8, 65 and 0 rows
 RAGGED_STAGED = ((256, 256, 5, (1000, 7, 245, 1, 64, 129),
                   (1, 65, 256, 7, 0, 100), 0),
                  (200, 96, 1, (7, 1000, 65, 128, 200), (1, 65, 130, 3, 64),
                   10),
-                 (100, 128, 32, (1000, 300, 7, 129), (65, 1, 33, 90), 10))
+                 (100, 128, 32, (1000, 300, 7, 129), (65, 1, 33, 90), 10)) \
+    + tuple((70, 64, kk, (300, 8, 65, 0), (65, 3, 20, 4), 5)
+            for kk in (2, 3, 4, 6, 7, 8))
 
 
 #: (F, m, h, batch) of the training kernels' held calls: one filter and

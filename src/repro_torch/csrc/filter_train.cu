@@ -942,16 +942,6 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int F, int m,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n > 0 ? n : 1;
-}
-
 Step make_step(const void* xg, const void* xl, const void* xg_lo,
                const void* xl_lo, const void* ig, const void* il, int F,
                int m, int h, int n_g, int n_l, int bg, int bl, int wvec) {
@@ -993,7 +983,8 @@ extern "C" int train_forward(const void* w1, const void* b1, const void* w2,
   if (err != cudaSuccess) return err;
   const long long items = (long long)F * ((bg + bl + ROWS - 1) / ROWS);
   if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const int blocks = (int)(items < sm_count() ? items : sm_count());
+  const int sms = hopper::sm_count();
+  const int blocks = (int)(items < sms ? items : sms);
   auto kernel = h > 128 ? train_forward_kernel<4> : train_forward_kernel<2>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1034,7 +1025,8 @@ extern "C" int train_backward_sgd(void* w1, void* b1, void* w2, void* b2,
     if (err == cudaSuccess) err = tensor_map(&map_v1u, vw1, F, m, h, MT);
     if (err != cudaSuccess) return err;
   }
-  const int blocks = (int)(items < sm_count() ? items : sm_count());
+  const int sms = hopper::sm_count();
+  const int blocks = (int)(items < sms ? items : sms);
   cudaError_t err = cudaFuncSetAttribute(
       train_backward_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       B_SMEM);

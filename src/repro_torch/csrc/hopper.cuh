@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by filter_train.cu, leaf_topk.cu
-// and tc_rounding.cu: mbarriers, TMA tile copies and the host's tensor-map
-// encoder, the async-proxy fence, and TF32 warpgroup products
+// and tc_rounding.cu: mbarriers, TMA tile copies, the host's tensor-map
+// encoder and SM count, the async-proxy fence, and TF32 warpgroup products
 // (wgmma.mma_async) with A in registers and B read from shared memory
 // through a 128-byte-swizzle K-major descriptor.
 //
@@ -44,6 +44,17 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// the current device's SM count, read once: a persistent grid's blocks
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n > 0 ? n : 1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

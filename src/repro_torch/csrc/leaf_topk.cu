@@ -327,8 +327,17 @@ constexpr int SLOT = 2 * HALF;
 constexpr int MAX_RING = 3;             // stages a pipeline's ring
 constexpr int SMEM_MAX = 232448;        // a block's shared memory on an H100
 constexpr int MAX_KK = REG_MAX_K;       // the kk this instance takes
-constexpr int REG_LIST = 8;             // lists in registers up to this kk
-                                        // (an instance for each kk)
+// the lists sit in registers during a tile for kk <= REG_LIST, in an
+// instance for each kk with lists of exactly kk entries: longer lists with
+// the entries past kk masked measured slower at kk = 1 and 5 on an H100
+// (bench/leaf_topk_lists.py, whose scratch copies define
+// LEAF_TOPK_ONE_LIST: one instance of that many entries for every kk up to
+// it; PERF.md)
+constexpr int REG_LIST = 8;
+#ifdef LEAF_TOPK_ONE_LIST
+static_assert(LEAF_TOPK_ONE_LIST >= 1 && LEAF_TOPK_ONE_LIST <= MAX_KK,
+              "a register instance");
+#endif
 
 struct Bars {
   uint64_t raw[CONSUMERS * MAX_RING];   // the stage's TMA bytes landed
@@ -915,16 +924,6 @@ leaf_topk_wgmma_kernel(const __grid_constant__ CUtensorMap map,
              threadIdx.x - 128 * wg);
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n > 0 ? n : 1;
-}
-
 // the 2-D view (m, n_rows) of the series in boxes of 32 columns x 64 rows,
 // 128-byte swizzle, zeros outside
 cudaError_t tensor_map(CUtensorMap* map, const void* series, long long n_rows,
@@ -1029,6 +1028,11 @@ extern "C" int leaf_topk_wgmma(const void* series, long long n_rows,
   const int smem = st::smem_bytes(kk);
   // lists of kk entries in registers for kk <= 8, in shared memory beyond
   using Kernel = void (*)(const CUtensorMap, const st::Args);
+#ifdef LEAF_TOPK_ONE_LIST
+  const Kernel kernel = kk <= LEAF_TOPK_ONE_LIST
+                            ? st::leaf_topk_wgmma_kernel<LEAF_TOPK_ONE_LIST>
+                            : st::leaf_topk_wgmma_kernel<0>;
+#else
   static const Kernel by_kk[st::REG_LIST + 1] = {
       st::leaf_topk_wgmma_kernel<0>, st::leaf_topk_wgmma_kernel<1>,
       st::leaf_topk_wgmma_kernel<2>, st::leaf_topk_wgmma_kernel<3>,
@@ -1036,11 +1040,12 @@ extern "C" int leaf_topk_wgmma(const void* series, long long n_rows,
       st::leaf_topk_wgmma_kernel<6>, st::leaf_topk_wgmma_kernel<7>,
       st::leaf_topk_wgmma_kernel<8>};
   const Kernel kernel = by_kk[kk <= st::REG_LIST ? kk : 0];
+#endif
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  kernel<<<st::sm_count(), st::THREADS, smem,
+  kernel<<<hopper::sm_count(), st::THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(map, a);
   return cudaGetLastError();
 }

@@ -11,6 +11,7 @@ repeated within a leaf (exact ties) too: both sides put the lower row first.
 """
 import importlib.util
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -621,14 +622,35 @@ def test_split_tf32_emulation_matches_reference(ref_trees, queries_small,
     assert int(counts.sum()) > 16 and np.isfinite(exp_d).any()
 
 
-@pytest.mark.parametrize("n", range(3))
+#: chip_smoke.py's held calls of the staged instance
+N_STAGED = 9
+
+
+def test_chip_smoke_holds_every_staged_instance():
+    """The staged kernel's instances (``leaf_topk.cu``: register lists of
+    exactly kk entries for each kk <= REG_LIST, shared-memory lists beyond)
+    are each held by a call of ``RAGGED_STAGED``, an empty leaf among
+    them."""
+    smoke = _load_smoke()
+    src = (ROOT / "src/repro_torch/csrc/leaf_topk.cu").read_text()
+    reg_list = int(re.search(r"constexpr int REG_LIST = (\d+);",
+                             src).group(1))
+    kks = {spec[2] for spec in smoke.RAGGED_STAGED}
+    assert set(range(1, reg_list + 1)) <= kks
+    assert max(kks) == leaf_kernel.WGMMA_MAX_KK
+    assert any(0 in spec[3] and spec[4][spec[3].index(0)] > 0
+               for spec in smoke.RAGGED_STAGED)
+    assert len(smoke.RAGGED_STAGED) == N_STAGED
+
+
+@pytest.mark.parametrize("n", range(N_STAGED))
 def test_chip_smoke_staged_calls(n):
     """chip_smoke.py's held calls of the staged instance (a leaf kept by 1,
-    65 and all 256 queries, leaves of 1 .. 1000 rows, m = 96, 128, 256, kk
-    = 1, 5, 32, empty lists, padding slots): each takes the wgmma instance;
-    the plain version the card holds it to agrees with the JAX package's
-    pass, and the emulated arithmetic with the plain version, under the
-    card's hold."""
+    65 and all 256 queries, leaves of 0 .. 1000 rows, m = 64, 96, 128, 256,
+    kk = 1 .. 8 and 32, empty lists, padding slots): each takes the wgmma
+    instance; the plain version the card holds it to agrees with the JAX
+    package's pass, and the emulated arithmetic with the plain version,
+    under the card's hold."""
     smoke = _load_smoke()
     call = smoke.staged_leaf_topk_calls("cpu")[n]
     series, start, sizes, q, leaves, counts, kk, max_leaf = call[:8]
