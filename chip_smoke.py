@@ -31,7 +31,10 @@
    no step runs autograd).
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
    candidate pass and the replay timed alone on the inputs the engine hands
-   them; the pass also held against its plain version there), and profiles
+   them; both also held against their plain versions there, and the replay
+   timed from a CUDA graph beside its kernel instance and its rows' chain,
+   ``ref.chain_lengths``: a lower bound on the ring entries a row takes,
+   since the kernel does not report its own count), and profiles
    it for the device's busy time, launches and idle share, then the
    candidate pass alone (asserted: one ``leaf_topk_wgmma_kernel`` launch,
    no warp-instance launch, none of the eager pass's kernels; the item
@@ -83,7 +86,10 @@
    allowed, the control.
 8. Holds each kernel against its plain PyTorch version on the card, on the
    largest inputs the main paths gave it (the replay bitwise, its top-k and
-   its three counters, also on calibration's largest call; and, for the
+   its three counters, also on calibration's largest call, each printed
+   with its kernel instance and its rows' chain, each asserted to take
+   the instance whose walk reads shared memory only and, at the batch, to
+   put a block on every SM; and, for the
    fused filter kernel and ``box_lb``, also on its smallest-Q call:
    ``search_early``'s
    single query, which takes the weight-streaming design and the
@@ -101,7 +107,9 @@
    multiple of a 16-byte vector, R and L % 4 != 0, the iSAX build's last
    slab chunk, box sides at +-inf, d = 5 .. 512, Q = 1 and 33; the replay
    at k = 1, 5, 32, 33 and 257 with ties, +-inf and NaN, shuffled orders,
-   Q = 1 and rows apart; the candidate pass at kk = 1 .. 257, max leaf 7 ..
+   Q = 1, rows apart, a row where every position is kept (the ring stays
+   full), rows whose bsf falls only near their end and a calibration-shaped
+   Q = 4096 at k = kk = 1; the candidate pass at kk = 1 .. 257, max leaf 7 ..
    1000, m = 65 .. 256, Q = 1, empty lists, padding slots and the probe's
    form, and its staged instance at ``RAGGED_STAGED``: a leaf kept by 1,
    65 and all 256 queries, leaves of 0 .. 1000 rows, m = 64 .. 256, kk
@@ -241,11 +249,20 @@ DESIGN = {
     "filter_mlp": ("the fused float32 kernel's designs with the raw "
                    "epilogue: split-TF32 mma.sync 128-query tiles; f32 "
                    "weight stream for a few queries", 3),
-    "replay": ("one warp a row, 4 x 32 positions a step with the next "
-               "step's order entries prefetched, lane-parallel pre-test "
-               "against the chunk's bsf, the candidates' slots preloaded "
-               "(kk <= 8) and walked one by one; top-k in registers for "
-               "k <= 32, in the output row beyond", None),
+    "replay": ("a walker warp and producer warps a row: the producers "
+               "gather d_lb and d_F 64 positions a step, the order a step "
+               "ahead, pre-test them against the walker's newest bsf in "
+               "shared memory, drop the certainly lb-pruned and write the "
+               "rest in visit order into a 256-entry shared-memory ring "
+               "(an entry: bound, prediction, the leaf's least value and, "
+               "where it may enter the top-k, its kk <= 8 slots), ordered "
+               "by acquire/release flags; the walker takes 32 entries a "
+               "step, re-tests them lane-parallel and merges one by one "
+               "only leaves with a value below its bsf, reading shared "
+               "memory only (k <= 32, kk <= 8).  A block a row of 1 + 7 "
+               "warps (a batch's 256 rows fill every SM; at calibration "
+               "few rows in flight on an SM); top-k in registers for k <= "
+               "32, in the output row beyond", None),
     "train_forward": ("persistent, one block of 3 warpgroups per SM over "
                       "(filter, 160-row tile) items: a producer warpgroup "
                       "(cp.async gathers of the raw rows and their lo "
@@ -307,6 +324,17 @@ SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
 #: the eager candidate pass's device kernels (the gather of the survivor
 #: slabs, the GEMV, the sort of each leaf's rows), which the kernel replaced
 EAGER_PASS_KERNELS = ("vectorized_gather_kernel", "gemv", "radixSortKVInPlace")
+#: ``_profile_bracketed``'s markers: ``torch.cuda._sleep``'s spin kernel,
+#: ``MARKER_PAD`` short ones and one of about 1 ms at the H100's clocks
+#: before the profiled work, and as many after it: the profiler can lose a
+#: profile's first device events (on the card, 3 to about 35 of them late
+#: in a run), so what it loses is markers.  The host's idle time at a
+#: profile's edges, one entry a try: a profile whose first or last event
+#: is not a marker is taken again with a longer wait
+MARKER_KERNEL = "spin_kernel"
+MARKER_CYCLES = 2_000_000
+MARKER_PAD = 64
+PROFILE_EDGES_S = (0.05, 0.5, 2.0)
 PAYLOADS = ("float32", "bfloat16", "int8")
 TARGETS = ("exact", "0.99", "0.95", "per-query")
 
@@ -1039,6 +1067,17 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     if torch.device(dev).type == "cuda":
         _hold_leaf_topk(pass_args[0], f"{label}leaf_topk (the k={k}, "
                         f"{target} batch's survivor pass)")
+        # the replay alone at this batch's call: held, its chain, its time
+        from repro_torch.kernels.replay import kernel as replay_kernel
+        args = replay_args[0]
+        args = args[:2] + tuple(t.contiguous() for t in args[2:5]) + args[5:]
+        call = f"{label}replay (the k={k}, {target} batch's call)"
+        held = _hold_replay(args, call)
+        _replay_timed_call(args)
+        _replay_chain(args, call)
+        graph = _graph_ms(lambda: replay_kernel.replay_cascade_cuda(*args))
+        log(f"kernel {call} ({held['instance']}): {graph:.4f} ms replayed "
+            "from a CUDA graph")
     layers = {
         "search": lambda: lfi.search(queries, k=k, quality_target=target,
                                      device=dev),
@@ -1070,19 +1109,24 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
         f"pairs {ms['candidate pass']:.2f} and the cascade replay over L={L} "
         f"positions {ms['replay']:.2f}) + rest")
 
-    from torch.profiler import ProfilerActivity, profile
-    _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def timed_search() -> float:
         t0 = time.perf_counter()
         lfi.search(queries, k=k, quality_target=target, device=dev)
         _sync(dev)
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels, by_name = _device_kernels(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    _sync(dev)
+    wall, kernels, by_name, marks = _profile_bracketed(
+        timed_search, dev, PROFILE_EDGES_S[0])
+    whole = min(marks) > 0
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    edges = (f"whole: {marks[0]} and {marks[1]} of {MARKER_PAD + 1} "
+             "markers before and after" if whole
+             else f"lost events at its edges: markers {marks}")
     if kernels:
-        log(f"{label}profiled search: wall {wall:.1f} ms under the profiler, "
+        log(f"{label}profiled search: wall {wall:.1f} ms under the profiler "
+            f"(the profile {edges}), "
             f"{len(kernels)} kernel launches, device busy {busy:.1f} ms: "
             f"idle share {1 - busy / wall:.3f} of the profiled batch, "
             f"{1 - busy / ms['search']:.3f} of the unprofiled median; top "
@@ -1095,19 +1139,30 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     # counter and, where the profiler recorded the device, its events),
     # beside the sort of its pair order, and none of the gathers, GEMVs and
     # row sorts the pass ran as before the kernel
-    _sync(dev)
-    counters, instances = _launch_counters(), _instance_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            engine._bucket_leaf_topk(*pass_args[0])
+    for attempt, edge in enumerate(PROFILE_EDGES_S, 1):
         _sync(dev)
-    _, alone = _device_kernels(prof)
-    launched = {n: c - counters[n] for n, c in _launch_counters().items()
-                if c != counters[n]}
-    launched_by = {n: c - instances[n]
-                   for n, c in _instance_launches().items()}
-    log(f"{label}candidate pass alone, twice: launches by counter "
+        counters, instances = _launch_counters(), _instance_launches()
+        _, _, alone, marks = _profile_bracketed(
+            lambda: [engine._bucket_leaf_topk(*pass_args[0])
+                     for _ in range(2)], dev, edge)
+        whole = min(marks) > 0
+        launched = {n: c - counters[n] for n, c in _launch_counters().items()
+                    if c != counters[n]}
+        launched_by = {n: c - instances[n]
+                       for n, c in _instance_launches().items()}
+        if not alone or whole:
+            break
+        log(f"{label}candidate pass alone: the profile holds {marks[0]} and "
+            f"{marks[1]} of its {MARKER_PAD + 1} markers before and after "
+            f"the passes, so it lost events at its edges (attempt "
+            f"{attempt} of {len(PROFILE_EDGES_S)}, {edge} s at the edges): "
+            + json.dumps({n: c for n, (_, c) in alone.items()}))
+    else:
+        raise AssertionError(f"no profile of the candidate pass was whole "
+                             f"in {len(PROFILE_EDGES_S)} attempts")
+    log(f"{label}candidate pass alone, twice (the profile holds "
+        f"{marks[0]} and {marks[1]} of its {MARKER_PAD + 1} markers before "
+        f"and after the passes): launches by counter "
         f"{json.dumps(launched)} (by instance {json.dumps(launched_by)}); "
         "profiled (ms, launches) "
         + (json.dumps({n: [round(t, 4), c] for n, (t, c) in alone.items()})
@@ -1125,10 +1180,47 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
             "order's torch ops (launches over the two passes): "
             + json.dumps({n: c for n, (_, c) in alone.items()
                           if n != "leaf_topk_wgmma_kernel"}))
-    return {**ms, "profiled_wall_ms": wall,
+    return {**ms, "profiled_wall_ms": wall, "profile_whole": whole,
             "device_busy_ms": busy if kernels else None,
             "kernel_launches": len(kernels),
             "pass_kernels": {n: c for n, (_, c) in alone.items()}}
+
+
+def _profile_bracketed(fn, dev, edge: float) -> tuple:
+    """``fn()`` run under ``torch.profiler`` between marker kernels
+    (``MARKER_KERNEL``): ``MARKER_PAD`` short ones and a long one before
+    it, the stream synchronized after them, and as many after ``fn``, with
+    the host idle for ``edge`` seconds at the profile's edges.  Returns
+    ``fn``'s result, its device events and, by short name, (ms, launches),
+    both without the markers, and the markers the profile holds before and
+    after them (the profile is whole where both are above 0: its first and
+    its last device event are markers).  The profiler can lose the device
+    events at a profile's edges; the stream runs in order, so a whole
+    profile holds every kernel ``fn`` launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.device(dev).type == "cuda"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(edge)
+        if cuda:
+            for cycles in [1000] * MARKER_PAD + [MARKER_CYCLES]:
+                torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+        out = fn()
+        if cuda:
+            for cycles in [MARKER_CYCLES] + [1000] * MARKER_PAD:
+                torch.cuda._sleep(cycles)
+        _sync(dev)
+        time.sleep(edge)
+    events, _ = _device_kernels(prof)
+    events.sort(key=lambda e: e.time_range.start)
+    marker = [MARKER_KERNEL in _kernel_name(e.name) for e in events]
+    work = [i for i, m in enumerate(marker) if not m]
+    before = work[0] if work else sum(marker)
+    after = len(events) - 1 - work[-1] if work else 0
+    kernels = [events[i] for i in work]
+    return out, kernels, _by_name(kernels), (before, after)
 
 
 def _device_kernels(prof) -> tuple:
@@ -1136,12 +1228,17 @@ def _device_kernels(prof) -> tuple:
     import torch
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, _by_name(kernels)
+
+
+def _by_name(kernels: list) -> dict:
+    """Device kernel events by short name: (ms, launches)."""
     by_name: dict = {}
     for e in kernels:
         t, n = by_name.get(_kernel_name(e.name), (0.0, 0))
         by_name[_kernel_name(e.name)] = (t + e.time_range.elapsed_us() / 1e3,
                                          n + 1)
-    return kernels, by_name
+    return by_name
 
 
 #: the functions ``collect_training_data`` reaches, timed by
@@ -1700,15 +1797,13 @@ def _train_bound(name: str, args, passes: float | None) -> tuple:
 
 def _replay_bound(args) -> tuple:
     """The replay's bytes bound (its operations are comparisons, well
-    under the bytes' time): every position's order entry, d_lb and d_F
-    (8 + 4 + 4 bytes), the kk values of each position this run's data
-    searches, and the outputs; the searched count is the replay's own."""
+    under the bytes' time): ``ref.bound_bytes`` on this run's data, which
+    counts a prediction only where its position's bound does not prune it,
+    and the values and ids only of the leaves searched and entering."""
     from repro_torch.analysis import roofline
-    from repro_torch.core import engine
-    leaf_d, k = args[0], args[5]
-    Q, L, kk = leaf_d.shape
-    n_searched = int(engine.replay_cascade(*args)[2].sum())
-    nbytes = 16 * Q * L + 4 * kk * n_searched + Q * (12 * k + 12)
+    from repro_torch.kernels.replay import ref as replay_ref
+    leaf_d, _, d_lb, d_F, order, k = args
+    nbytes = replay_ref.bound_bytes(leaf_d, d_lb, d_F, order, k)
     return nbytes / roofline.H100.hbm_bw * 1e3, "bytes"
 
 
@@ -1917,10 +2012,58 @@ def _hold_replay(args, label: str) -> dict:
     same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
     shapes = (" x ".join(str(tuple(a.shape)) for a in args[:2])
               + f", k={args[5]}")
-    log(f"kernel {label} at {shapes}: bitwise equal per output {same} "
-        f"(tolerance 0: {KERNELS['replay'][3]})")
+    which = _replay_instance(args)
+    log(f"kernel {label} at {shapes} ({which}): bitwise equal per output "
+        f"{same} (tolerance 0: {KERNELS['replay'][3]})")
     assert len(got) == len(want) and all(same), f"{label} disagrees"
-    return {"shapes": shapes, "max_abs_err": 0.0, "tolerance": 0.0}
+    return {"shapes": shapes, "instance": which, "max_abs_err": 0.0,
+            "tolerance": 0.0}
+
+
+def _replay_instance(args) -> str:
+    """The replay's launch at a call: a block a row, and the instance the
+    C entry picks by kk and k (``kernel.instance``)."""
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    Q, _, kk = args[0].shape
+    return f"{Q} blocks, a row each; {replay_kernel.instance(kk, args[5])}"
+
+
+def _replay_timed_call(args, batch: bool = True) -> None:
+    """A timed call takes the instance whose walk reads shared memory only
+    (the top-k in registers, the leaf slots in the ring), and a batch's
+    launch puts a block on every SM."""
+    import torch
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    from repro_torch.kernels.replay import ref as replay_ref
+    Q, _, kk = args[0].shape
+    which = replay_kernel.instance(kk, args[5])
+    assert which.startswith("top-k in registers;") and 1 <= kk <= \
+        replay_ref.PRE, which
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert not batch or Q >= sms, (Q, sms)
+
+
+def _replay_chain(args, label: str) -> dict:
+    """Per row of a replay call, the ring entries no bsf can drop and the
+    leaves that enter the top-k (``ref.chain_lengths``: the walker's serial
+    merges, at least), their mean and largest.  The first is a lower bound
+    on the entries the kernel's ring takes: stale pre-tests keep more, and
+    the kernel, whose C entry is fixed, does not report its own count."""
+    from repro_torch.kernels.replay import ref as replay_ref
+    leaf_d, _, d_lb, d_F, order, k = args
+    entries, entering, _ = replay_ref.chain_lengths(leaf_d, d_lb, d_F,
+                                                    order, k)
+    out = {"ring_entries_least_mean": entries.float().mean().item(),
+           "ring_entries_least_max": int(entries.max().item()),
+           "entering_mean": entering.float().mean().item(),
+           "entering_max": int(entering.max().item())}
+    log(f"kernel {label}: per row of {order.shape[1]} positions, ring "
+        f"entries no bsf can drop: mean "
+        f"{out['ring_entries_least_mean']:.1f}, largest "
+        f"{out['ring_entries_least_max']}; leaves entering the top-k (the "
+        f"walker's serial merges, at least): mean "
+        f"{out['entering_mean']:.2f}, largest {out['entering_max']}")
+    return out
 
 
 def _scratch(name: str, args) -> tuple:
@@ -2133,17 +2276,33 @@ RAGGED_SLAB = ((88, 200, 256, 256), (3, 130, 97, 256), (2, 50, 64, 33),
 RAGGED_BOX = ((1, 4093, 16), (33, 1001, 8), (33, 130, 5), (7, 517, 64),
               (4, 4096, 16), (40, 7479, 8), (33, 1001, 65), (2, 390, 128),
               (64, 777, 128), (9, 4095, 512))
-#: (Q, L, kk, k, order) of the replay's: k = 1, 5, 32 (the last in
-#: registers), 33 and 257 (in the output row; 257 shifts it 32 at a time
-#: over 8 pieces), kk above 32 (two slot loads) and below k, Q = 1, L off
-#: the 128-position step; the order "sorted" (a stable argsort of d_lb,
-#: as the callers pass) or "shuffled"; values drawn from a few levels (so
-#: ties everywhere) with +-inf and NaN among the bounds, the predictions
-#: and the leaf values, leaves sorted and unsorted, and one call's rows
-#: apart in a larger buffer (as the engine passes them)
-RAGGED_REPLAY = ((1, 4093, 5, 5, "sorted"), (37, 1000, 1, 1, "shuffled"),
-                 (37, 700, 5, 32, "sorted"), (20, 600, 40, 33, "shuffled"),
-                 (9, 500, 7, 257, "sorted"), (64, 129, 3, 5, "shuffled"))
+#: (Q, L, kk, k, order, values, apart) of the replay's: k = 1, 5, 32 (the
+#: last in registers), 33 and 257 (in the output row; 257 shifts it 32 at a
+#: time over 8 pieces), kk above 8 (no slots in the ring) and above 32 (two
+#: slot loads), kk below k, Q = 1, L off the producers' 64-position step; the
+#: order "sorted" (a stable argsort of d_lb, as the callers pass) or
+#: "shuffled"; the values "levels" (a few levels, so ties everywhere, with
+#: +-inf and NaN among the bounds, the predictions and the leaf values;
+#: leaves sorted and unsorted), "kept" (every bound -inf or NaN: no
+#: position is ever dropped, so the ring stays full and the walker decides
+#: every one) or "late" (the leaves' values above every bound and
+#: prediction except in the last 3% of each row's visit order: the bsf
+#: falls only there, stale pre-tests keep positions that the current bsf
+#: prunes, and the lb/filter split is decided by the bsf just before each
+#: one); with ``apart``, the call's rows apart in a larger buffer (as the
+#: engine passes them); and a calibration-shaped call (Q = 4096, k = kk =
+#: 1: many blocks an SM, in waves).  The first six calls draw what they
+#: drew before the last four were added.
+RAGGED_REPLAY = ((1, 4093, 5, 5, "sorted", "levels", False),
+                 (37, 1000, 1, 1, "shuffled", "levels", False),
+                 (37, 700, 5, 32, "sorted", "levels", False),
+                 (20, 600, 40, 33, "shuffled", "levels", False),
+                 (9, 500, 7, 257, "sorted", "levels", False),
+                 (64, 129, 3, 5, "shuffled", "levels", True),
+                 (24, 3000, 5, 5, "shuffled", "kept", False),
+                 (16, 2500, 12, 5, "sorted", "late", False),
+                 (24, 3001, 1, 1, "shuffled", "late", False),
+                 (4096, 2000, 1, 1, "sorted", "levels", False))
 
 #: (Q, L, max_leaf, m, kk, list width, scatter) of the candidate pass's: kk
 #: = 1, 5, 32 (the last in registers), 33 and 257 (in the output row), max
@@ -2331,7 +2490,7 @@ def replay_calls(device: str = "cuda") -> list:
     rng = np.random.default_rng(2)
     levels = np.float32([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0])
     calls = []
-    for n, (Q, L, kk, k, how) in enumerate(RAGGED_REPLAY):
+    for n, (Q, L, kk, k, how, values, apart) in enumerate(RAGGED_REPLAY):
         leaf_d = rng.choice(levels, (Q, L + 1, kk))
         if n % 2 == 0:
             leaf_d = np.sort(leaf_d, axis=-1)
@@ -2341,14 +2500,25 @@ def replay_calls(device: str = "cuda") -> list:
             for v in (np.inf, np.nan, -np.inf):
                 a[rng.random(a.shape) < 0.02] = v
         leaf_i = rng.integers(0, 1 << 40, (Q, L + 1, kk))
+        if values == "kept":
+            d_lb = np.where(rng.random((Q, L)) < 0.1, np.nan, -np.inf)
         order = (np.argsort(d_lb, axis=1, kind="stable") if how == "sorted"
                  else np.stack([rng.permutation(L) for _ in range(Q)]))
+        if values == "late":
+            # every leaf above the bounds and predictions (at most 3.6)
+            # but those visited in the last 3% of the row
+            early = order[:, :L - max(L * 3 // 100, 1)]
+            big = np.where(leaf_d == -np.inf, 8.0, 8.0 + leaf_d)
+            rows = np.arange(Q)[:, None]
+            leaf_d[rows, early] = big[rows, early]
         t = {name: torch.as_tensor(np.ascontiguousarray(a), device=device)
              for name, a in (("leaf_d", leaf_d.astype(np.float32)),
-                             ("leaf_i", leaf_i), ("d_lb", d_lb),
-                             ("d_F", d_F), ("order", order))}
+                             ("leaf_i", leaf_i),
+                             ("d_lb", d_lb.astype(np.float32)),
+                             ("d_F", d_F.astype(np.float32)),
+                             ("order", order))}
         ld, li = t["leaf_d"][:, :L], t["leaf_i"][:, :L]
-        if n < len(RAGGED_REPLAY) - 1:      # the last call's rows lie apart
+        if not apart:
             ld, li = ld.contiguous(), li.contiguous()
         calls.append((ld, li, t["d_lb"], t["d_F"], t["order"], k))
     return calls
@@ -2495,12 +2665,18 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 "fused float32 kernel's time at the same call (graph: "
                 f"{res['graph_ms'] / fused['graph_ms']:.3f} x), "
                 f"{res['ms'] / res['plain_ms']:.3f} x its plain version's")
+        if name == "replay":
+            _replay_timed_call(args)
+            row.update(instance=res["instance"],
+                       chain=_replay_chain(args, "replay"))
         if name == "replay" and "replay@calibration" in captured:
             cal = captured["replay@calibration"][1]
+            label = "replay (calibration's largest call)"
+            _replay_timed_call(cal, batch=False)
             row["calibration_call"] = {
                 "rows": cal[2].shape[0], "L": cal[2].shape[1],
-                **_check_call(name, cal, "replay (calibration's largest "
-                              "call)", power)}
+                **_check_call(name, cal, label, power),
+                "chain": _replay_chain(cal, label)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
         if name == "leaf_topk":

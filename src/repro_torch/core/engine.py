@@ -29,7 +29,8 @@ path has no host sync before the replay.
 
 The cascade is a ``lax.scan`` over the L visit positions in the reference.
 Here :func:`replay_cascade` runs it on the card as one launch of the
-hand-written replay kernel (``kernels/replay``, one warp walks one row),
+hand-written replay kernel (``kernels/replay``: producer warps pre-test
+a row's positions into a shared-memory ring, one walker warp walks it),
 and on the CPU as that kernel's plain version, a Python loop over the
 positions vectorised over the rows; the two agree bitwise.  The probe's
 leaf-0 values are written verbatim into the replay's summaries, so the

@@ -1,10 +1,23 @@
 """ctypes binding of the hand-written cascade-replay CUDA kernel.
 
-Source: ``src/repro_torch/csrc/replay.cu`` (the file says what it computes,
-what bounds it on an H100 and how it walks a row).  The wrapper checks its
-inputs, allocates the outputs with ``torch.empty``, launches on the current
-stream without synchronising, raises if the launch reports a CUDA error,
-and adds one to :data:`LAUNCHES`.  Every k is served by the one launch.
+Source: ``src/repro_torch/csrc/replay.cu``.  It replaces no Pallas kernel:
+the reference runs the replay as a ``lax.scan`` compiled by XLA
+(``src/repro/core/engine.py:307``).  Its bytes bound is every position's
+order entry and bound, the prediction of each position its bound does not
+prune, each searched leaf's values and each entering leaf's ids
+(``ref.bound_bytes``); a row's floor is its serial part, the leaves that
+enter the top-k merged one by one.  A block is one row: seven producer
+warps gather each position's bound ahead of the walk, pre-test it against
+the walker's newest bsf (a stale bsf can keep too many positions, never
+drop a wrong one), drop the positions lb-pruned for certain, and write the
+others with their prediction, their leaf's least value and, where it can
+enter the top-k, its slots, in visit order into a ring in shared memory;
+one walker warp takes 32 entries at a time from the ring and merges only
+the leaves with a value below its bsf.  The C entry picks the instance by
+k and kk (:func:`instance`).  The wrapper checks its inputs, allocates the
+outputs with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch reports a CUDA error, and adds one to
+:data:`LAUNCHES`.  Every k is served by the one launch.
 """
 from __future__ import annotations
 
@@ -13,9 +26,13 @@ import ctypes
 import torch
 
 from .. import common
+from . import ref
 
 #: launches per kernel; ``chip_smoke.py`` zeroes them before the main path
 LAUNCHES = {"replay": 0}
+
+#: the largest k whose top-k lives in registers (``REG_MAX_K``)
+REG_MAX_K = 32
 
 _SIGNATURES = {
     "replay": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
@@ -37,6 +54,16 @@ def _require_leaf_block(t: torch.Tensor, name: str, dtype: torch.dtype,
     _, L, kk = t.shape
     if (kk > 1 and t.stride(2) != 1) or (L > 1 and t.stride(1) != kk):
         raise ValueError(f"{name}'s rows must each be contiguous")
+
+
+def instance(kk: int, k: int) -> str:
+    """The kernel instance the C entry launches for kk and k: the top-k in
+    registers up to :data:`REG_MAX_K`, in the output row beyond; a ring
+    entry carrying one leaf slot, ``ref.PRE`` of them, or none (the walk
+    reads a searched leaf's slots from ``leaf_d``)."""
+    top = "registers" if k <= REG_MAX_K else "the output row"
+    slots = 1 if kk <= 1 else ref.PRE if kk <= ref.PRE else 0
+    return f"top-k in {top}; leaf slots a ring entry: {slots}"
 
 
 def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,

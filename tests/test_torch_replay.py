@@ -92,46 +92,141 @@ def test_plain_replay_matches_reference(k, kk, shuffled, sorted_leaves):
     assert int(got[2].sum()) > 0 and int(got[3].sum()) > 0
 
 
-@settings(max_examples=40, deadline=None)
-@given(seed=st.integers(0, 2 ** 31 - 1), Q=st.integers(1, 3),
-       L=st.integers(1, 90), kk=st.integers(1, 6),
-       k=st.sampled_from([1, 2, 5, 32, 33]),
-       chunk=st.sampled_from([1, 3, 32]),
-       shuffled=st.sampled_from([False, True]))
-def test_chunked_walk_equals_plain_loop(seed, Q, L, kk, k, chunk, shuffled):
-    """The kernel's walk (pre-test against the chunk's bsf, candidates one
-    by one, classification from the bsf before each position), emulated,
-    equals the plain loop bitwise, NaN included."""
-    arrays = _torch(_inputs(seed, Q, L, kk, shuffled=shuffled,
-                            specials=(np.inf, -np.inf, np.nan),
-                            sorted_leaves=seed % 2 == 0))
+#: (lag, capacity) of the emulated walk: the freshest pre-test bsf and the
+#: kernel's ring; a bsf one and four chunks stale in smaller rings; and a
+#: walker that moves only when the ring is full (the most stale pre-tests,
+#: a ring that fills and wraps every chunk)
+WALKS = [(0, ref.RING), (1, 45), (4, 32), (10 ** 9, 32)]
+
+
+@pytest.mark.parametrize("lag, capacity", WALKS)
+def test_chunked_walk_equals_plain_loop(lag, capacity):
+    """The kernel's walk (the producers' pre-test against a bsf that lags
+    by ``lag`` chunks, a ring of ``capacity`` entries, the walker's
+    lane-parallel re-test and its one-by-one merges of the leaves that can
+    enter the top-k, classification from the bsf before each position),
+    emulated, equals the plain loop bitwise, NaN included."""
+    @settings(max_examples=25, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), Q=st.integers(1, 3),
+           L=st.integers(1, 90), kk=st.integers(0, 10),
+           k=st.sampled_from([1, 2, 5, 32, 33]),
+           chunk=st.sampled_from([1, 3, 32]),
+           shuffled=st.sampled_from([False, True]))
+    def check(seed, Q, L, kk, k, chunk, shuffled):
+        arrays = _torch(_inputs(seed, Q, L, kk, shuffled=shuffled,
+                                specials=(np.inf, -np.inf, np.nan),
+                                sorted_leaves=seed % 2 == 0))
+        want = ref.replay_cascade(*arrays, k)
+        got = ref.replay_chunked(*arrays, k, chunk=chunk, lag=lag,
+                                 capacity=capacity)
+        _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
+    check()
+
+
+def _late_inputs(seed: int, Q: int, L: int, kk: int):
+    """Leaves above every bound and prediction except those visited in the
+    last tenth of each row: the bsf falls only there."""
+    leaf_d, leaf_i, d_lb, d_F, order = _inputs(
+        seed, Q, L, kk, shuffled=seed % 2 == 1,
+        specials=(np.inf, -np.inf, np.nan))
+    late = order[:, L - L // 10:]
+    rows = np.arange(Q)[:, None]
+    high = np.where(leaf_d == -np.inf, 9.0, leaf_d + 9.0).astype(np.float32)
+    high[rows, late] = leaf_d[rows, late]
+    return high, leaf_i, d_lb, d_F, order
+
+
+@pytest.mark.parametrize("lag, capacity", [(0, ref.RING), (10 ** 9, 32),
+                                           (10 ** 9, ref.RING)])
+@pytest.mark.parametrize("k, kk", [(1, 1), (5, 5), (33, 9)])
+def test_chunked_walk_when_the_bsf_falls_late(lag, capacity, k, kk):
+    """The bsf falls only in the last tenth of each row.  With a stale
+    pre-test the ring takes positions that the current bsf prunes (more
+    entries than any bsf can keep, ``chain_lengths``), and the lb/filter
+    split of the late positions is decided by the bsf just before each
+    one: still bitwise the plain loop, both prunings counted."""
+    arrays = _torch(_late_inputs(11 * k + kk, 4, 400, kk))
     want = ref.replay_cascade(*arrays, k)
-    got = ref.replay_chunked(*arrays, k, chunk=chunk)
+    stats: dict = {}
+    got = ref.replay_chunked(*arrays, k, lag=lag, capacity=capacity,
+                             stats=stats)
     _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
+    assert (want[3] > 0).all() and (want[4] > 0).all()
+    least, _, _ = ref.chain_lengths(arrays[0], arrays[2], arrays[3],
+                                    arrays[4], k)
+    entries = torch.tensor(stats["entries"], dtype=torch.int32)
+    assert (entries >= least).all()
+    if lag == 0:
+        # the freshest bsf lags one walker step: a few entries more at most
+        assert (entries <= least + 2 * ref.CHUNK).all()
+    else:
+        assert (entries > least).all()
 
 
-def test_chunked_walk_on_chip_smoke_held_calls():
+def test_chain_lengths_count_the_walk():
+    """``chain_lengths``: the ring entries no bsf can drop are the positions
+    not lb-pruned (n_s + n_pf of the plain loop), the searched leaves n_s,
+    and the leaves entering the top-k are the searched positions with a
+    value below the bsf just before them, counted one position at a time
+    here."""
+    arrays = _torch(_inputs(7, 3, 120, 4, shuffled=True,
+                            specials=(np.inf, -np.inf, np.nan)))
+    leaf_d, leaf_i, d_lb, d_F, order = arrays
+    entries, entering, searched = ref.chain_lengths(leaf_d, d_lb, d_F,
+                                                    order, 5)
+    _, _, n_s, n_plb, n_pf = ref.replay_cascade(*arrays, 5)
+    assert torch.equal(entries, n_s + n_pf)
+    assert torch.equal(searched, n_s)
+    for r in range(3):
+        count = 0
+        td = [float("inf")] * 5
+        for o in order[r].tolist():
+            bsf = td[-1]
+            if d_lb[r, o] > bsf or d_F[r, o] > bsf:
+                continue
+            vals = [v for v in leaf_d[r, o].tolist() if v == v]
+            count += bool(vals) and min(vals) < bsf
+            td = sorted(td + vals)[:5]
+        assert int(entering[r]) == count
+    assert int(entering.sum()) > 0
+
+
+@pytest.mark.parametrize("lag, capacity", [(0, ref.RING), (3, 64),
+                                           (10 ** 9, 32)])
+def test_chunked_walk_on_chip_smoke_held_calls(lag, capacity):
     """chip_smoke.py's held replay calls cover what the card must hold
-    (k = 1, 5, 32, 33, 257; kk above 32 and below k; Q = 1; sorted and
-    shuffled orders; +-inf and NaN everywhere; rows apart), and the
-    emulated walk equals the plain loop on every one of them."""
+    (k = 1, 5, 32, 33, 257; kk above 8 and 32 and below k; Q = 1 and a
+    calibration-shaped Q = 4096 at k = kk = 1; sorted and shuffled orders;
+    +-inf and NaN everywhere; rows apart; a row where every position is
+    kept and rows whose bsf falls late), and the emulated walk equals the
+    plain loop on every one of them (on the first 64 rows of the larger
+    ones)."""
     smoke = _load_smoke()
     calls = smoke.replay_calls(device="cpu")
     ks = {c[5] for c in calls}
     kks = {c[0].shape[2] for c in calls}
     assert {1, 5, 32, 33, 257} <= ks
-    assert max(kks) > 32 and any(c[0].shape[2] < c[5] for c in calls)
+    assert max(kks) > 32 and any(8 < kk < 32 for kk in kks)
+    assert any(c[0].shape[2] < c[5] for c in calls)
     assert min(c[0].shape[0] for c in calls) == 1
-    assert any(c[0].shape[1] % 128 for c in calls)
+    assert max(c[0].shape[0] for c in calls) >= 4096   # calibration-like
+    assert any(c[0].shape[1] % 64 for c in calls)
     assert any(not c[0].is_contiguous() for c in calls)
-    for c in calls:
+    values = {spec[5] for spec in smoke.RAGGED_REPLAY}
+    assert values == {"levels", "kept", "late"}
+    for c, spec in zip(calls, smoke.RAGGED_REPLAY):
         for t in c[:4]:
             if t.is_floating_point():
                 assert torch.isnan(t).any() and torch.isinf(t).any()
+        c = tuple(t[:64] for t in c[:5]) + (c[5],)
         want = ref.replay_cascade(*c)
-        got = ref.replay_chunked(*c)
+        got = ref.replay_chunked(*c, lag=lag, capacity=capacity)
         assert all(smoke._bitwise_equal(g, w) for g, w in zip(got, want))
         assert int(want[2].sum()) > 0
+        if spec[5] == "kept":             # no position is ever dropped
+            assert int(want[3].sum()) == 0
+        if spec[5] == "late":
+            assert int(want[3].sum()) > 0 and int(want[4].sum()) > 0
 
 
 def test_engine_replay_runs_the_plain_loop_on_the_cpu():
@@ -192,7 +287,11 @@ def test_kernel_wrapper_checks_before_it_builds():
 
 def test_c_entry_matches_the_binding():
     """One C entry, ``replay``, with the binding's 16 arguments; the source
-    names what it replaces; the kernel's step is the emulation's chunk."""
+    names what it replaces; the walker's step is the emulation's chunk, the
+    ring's capacity and an entry's slots are the emulation's, the launch
+    is a block a row (256 blocks at a batch's 256 rows: every SM of an
+    H100's 132 holds one), and ``kernel.instance`` names the instance the
+    C entry picks by k and kk."""
     text = (common.CSRC / "replay.cu").read_text()
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
     assert [name for name, _ in entries] == ["replay"]
@@ -201,6 +300,25 @@ def test_c_entry_matches_the_binding():
     assert "src/repro/core/engine.py:307" in text
     assert re.search(r"constexpr int REG_MAX_K = 32;", text)
     assert "32 * SUB" in text and ref.CHUNK == 32
+    assert re.search(rf"constexpr int RING = {ref.RING};", text)
+    assert re.search(rf"constexpr int PRE = {ref.PRE};", text)
+    assert "kern<<<a.Q, THREADS, smem, st>>>" in text
+    assert re.search(rf"constexpr int REG_MAX_K = "
+                     rf"{replay_kernel.REG_MAX_K};", text)
+    assert "if (a.kk <= 1) return launch<REG, 1>(a, st);" in text
+    assert "if (a.kk <= PRE) return launch<REG, PRE>(a, st);" in text
+    assert "k <= REG_MAX_K ? launch_kk<true>(a, st)" in text
+    assert [replay_kernel.instance(kk, k) for kk, k in
+            ((1, 1), (5, 32), (8, 33), (9, 5))] == [
+        "top-k in registers; leaf slots a ring entry: 1",
+        "top-k in registers; leaf slots a ring entry: 8",
+        "top-k in the output row; leaf slots a ring entry: 8",
+        "top-k in registers; leaf slots a ring entry: 0"]
+    # the walker's loop reads the ring, never the arrays the producers load
+    walk = text[text.index("__device__ __forceinline__ int2 walk("):
+                text.index("// producer `first`")]
+    for name in ("__ldg(lbr", "__ldg(fr", "__ldg(ord", "__ldg(ldr"):
+        assert name not in walk
 
 
 def test_chip_smoke_holds_and_counts_the_replay():
@@ -212,20 +330,41 @@ def test_chip_smoke_holds_and_counts_the_replay():
     assert (ROOT / source).exists() and tol == (0.0, 0.0)
     assert replaces.startswith("no Pallas kernel")
     assert "replay" in smoke.DESIGN and smoke.DESIGN["replay"][1] is None
+    design = smoke.DESIGN["replay"][0]
+    assert "walker" in design and "ring" in design and "1 + 7" in design
     assert "replay_kernel" in smoke.SPLIT_KERNELS
     for path in (smoke.DSTREE_KERNELS, smoke.ISAX_KERNELS,
                  smoke.GROUPED_KERNELS):
         assert "replay" in path
     assert "replay" not in smoke.SEARCH_KERNELS
     call = smoke.replay_calls(device="cpu")[1]
-    leaf_d, _, d_lb, _, _, k = call
-    Q, L, kk = leaf_d.shape
-    searched = int(ref.replay_cascade(*call)[2].sum())
+    leaf_d, _, d_lb, d_F, order, k = call
     ms, by = smoke._bound("replay", call)
     from repro_torch.analysis import roofline
     assert by == "bytes"
-    assert ms == (16 * Q * L + 4 * kk * searched + Q * (12 * k + 12)) \
+    assert ms == ref.bound_bytes(leaf_d, d_lb, d_F, order, k) \
         / roofline.H100.hbm_bw * 1e3
+
+
+def test_bound_bytes_counts_what_the_data_needs():
+    """``ref.bound_bytes``: 12 bytes a position (order entry and bound), 4
+    for the prediction of each position its bound does not prune, kk
+    values of each searched leaf, kk ids of each entering leaf, and the
+    outputs; below the 16 bytes a position of reading every prediction
+    where the bounds prune."""
+    arrays = _torch(_inputs(9, 3, 150, 4, shuffled=False,
+                            specials=(np.inf, -np.inf, np.nan)))
+    leaf_d, leaf_i, d_lb, d_F, order = arrays
+    Q, L, kk = leaf_d.shape
+    k = 5
+    _, _, n_s, n_plb, n_pf = ref.replay_cascade(*arrays, k)
+    _, entering, _ = ref.chain_lengths(leaf_d, d_lb, d_F, order, k)
+    want = (12 * Q * L + 4 * int((n_s + n_pf).sum())
+            + 4 * kk * int(n_s.sum()) + 8 * kk * int(entering.sum())
+            + Q * (12 * k + 12))
+    got = ref.bound_bytes(leaf_d, d_lb, d_F, order, k)
+    assert got == want
+    assert int(n_plb.sum()) > 0 and got < want + 4 * int(n_plb.sum())
 
 
 def test_chip_smoke_captures_batch_and_calibration_calls(monkeypatch):
