@@ -51,8 +51,19 @@
    written) on the same DSTree index for 32 of its queries, k = 1 and 5,
    exact and at target 0.99: per-query wall time (median, p90), searched
    leaves, pruning and recall beside the batched path's figures for the
-   same queries; asserts exact ``search_early`` == brute force and that
-   ``box_lb`` and ``fused_filter_mlp`` launched.
+   same queries; asserts exact ``search_early`` == brute force, that
+   ``box_lb`` and ``fused_filter_mlp`` launched and the walk kernel
+   (``early_walk``) once a call, and holds each of the 128 walk launches
+   bitwise against the plain walk on its own arguments (top-k values and
+   ids, searched, visited and filter-pruned counts).  The same phase runs
+   on the iSAX float32 index after its batches (step 7).  Then the paper's
+   comparison methods (``run_simulators``, ``repro_torch.core.baselines``)
+   on the port's own (d_lb, d_L, d_F) matrices for the first 64 queries,
+   tuned on 64 validation queries: exact, LeaFi, eps, delta-eps, ProS, LT
+   and LR, each one's recall, searched leaves and pruning beside
+   ``search_early``'s searched leaves at k = 1, 0.99; asserts that exact
+   and LR recall 1 and that the oracle filter (d_F = d_L) searches no more
+   leaves than exact, query by query, with the same final bsf.
 5. The grouped per-target search (``search_batched_grouped``) on the 256
    per-query-target queries, k = 1 and 5, beside the vectorised per-query
    batch: recall, pruning, the share of identical ids; asserts the
@@ -93,7 +104,10 @@
    fused filter kernel and ``box_lb``, also on its smallest-Q call:
    ``search_early``'s
    single query, which takes the weight-streaming design and the
-   few-query path; ``box_lb`` at every shape the paths gave it, with its
+   few-query path; the early walk bitwise on the largest k = 5 exact call
+   of each ``search_early`` phase, timed, and at ``RAGGED_EARLY``, each
+   held call printed with its grid, registers, its time from a CUDA graph
+   and its bound; ``box_lb`` at every shape the paths gave it, with its
    launches per shape; the candidate pass in both distance forms and on
    the probe's largest call, its ids equal except at near-ties), and
    times kernel (through its
@@ -151,6 +165,9 @@ TRAIN_SOURCE = ("no Pallas kernel: the reference's jitted SGD step, "
 #: what the candidate-pass kernel replaces: no Pallas kernel
 LEAF_TOPK_SOURCE = ("no Pallas kernel: the reference's jitted lax.fori_loop "
                     "candidate pass, src/repro/core/engine.py:271")
+#: what the early-walk kernel replaces: no Pallas kernel
+EARLY_SOURCE = ("no Pallas kernel: the reference's jitted lax.while_loop "
+                "walk, src/repro/core/search.py:327 _search_early_core")
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
     # the limits are a few times the f32 reading, below what a TF32 run of
@@ -201,6 +218,11 @@ KERNELS = {
                            "v_b2: f32 sums over m and the rows in another "
                            "order, relative to max|v| each; w1, b1, w2, b2: "
                            "bitwise p - lr·v of the kernel's own v"),
+    "early_walk": ("src/repro_torch/csrc/early_walk.cu", EARLY_SOURCE,
+                   (0.0, 0.0), "each row's float32 sum in one fixed order, "
+                   "no FMA (the plain version repeats it), then comparisons "
+                   "and selection: bitwise, the top-k and all three "
+                   "counters"),
     # ids: equal, or where they differ a near-tie (``_leaf_topk_errors``)
     "leaf_topk": ("src/repro_torch/csrc/leaf_topk.cu", LEAF_TOPK_SOURCE,
                   (1e-4, 1e-5), "f32 sums over m in another order (the "
@@ -263,6 +285,19 @@ DESIGN = {
                "warps (a batch's 256 rows fill every SM; at calibration "
                "few rows in flight on an SM); top-k in registers for k <= "
                "32, in the output row beyond", None),
+    "early_walk": ("a persistent grid of one block of 8 warps a SM, "
+                   "launched cooperatively (every block resident): scorer "
+                   "warps claim (leaf, 64 rows) items in visit order, "
+                   "pre-test each against the walker's published bsf, read "
+                   "the rows 8 at a time (16-byte loads where m % 4 == 0) "
+                   "and write the item's k smallest distances below that "
+                   "bsf into a 2048-item ring in global memory, a leaf's "
+                   "items counted complete with release order; one walker "
+                   "warp takes 32 complete leaves a step, re-tests them "
+                   "lane-parallel and merges one by one only searched "
+                   "leaves that can enter the top-k; top-k in registers "
+                   "for k <= 32, in the output row or the slot beyond",
+                   None),
     "train_forward": ("persistent, one block of 3 warpgroups per SM over "
                       "(filter, 160-row tile) items: a producer warpgroup "
                       "(cp.async gathers of the raw rows and their lo "
@@ -307,7 +342,7 @@ SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
                  "leaf_topk_kernel", "leaf_topk_wgmma_kernel",
-                 "tc_rounding_kernel")
+                 "tc_rounding_kernel", "early_walk_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
@@ -317,8 +352,9 @@ DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb",
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
                 "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb",
                 "replay", "leaf_topk") + BUILD_KERNELS
-SEARCH_KERNELS = ("box_lb", "fused_filter_mlp")     # early and grouped
-GROUPED_KERNELS = SEARCH_KERNELS + ("replay", "leaf_topk")
+#: search_early's: the bounds, the predictions and the walk
+SEARCH_KERNELS = ("box_lb", "fused_filter_mlp", "early_walk")
+GROUPED_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
 SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
                  "fused_filter_mlp_int8")
 #: the eager candidate pass's device kernels (the gather of the survivor
@@ -352,6 +388,7 @@ def card_line() -> str:
 
 def _counter_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
+    from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -359,7 +396,7 @@ def _counter_tables():
     from repro_torch.kernels.replay import kernel as replay_kernel
     return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
             replay_kernel.LAUNCHES, train_kernel.LAUNCHES,
-            leaf_kernel.LAUNCHES)
+            leaf_kernel.LAUNCHES, walk_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -400,7 +437,8 @@ def capture_largest_inputs(captured: dict):
     (count and last arguments, under ``box_lb@shapes``); for the replay
     the largest call made by calibration apart (``replay@calibration``,
     the calls inside ``conformal.simulate_search``); for the candidate pass
-    the probe's calls apart (``leaf_topk@probe``, rows by slot).  The
+    the probe's calls apart (``leaf_topk@probe``, rows by slot); for the
+    early walk every call, in order (``early_walk@calls``).  The
     training kernels' calls all have one size per build; of the largest build's, the
     ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
     it was given cloned (later steps update them in place) and without the
@@ -409,6 +447,7 @@ def capture_largest_inputs(captured: dict):
     and their launch counts, are unchanged."""
     from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
+    from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -425,7 +464,8 @@ def capture_largest_inputs(captured: dict):
                 lambda a: "replay@calibration" if in_calibration
                 else "replay"),
                (leaf_kernel, "leaf_topk_cuda",
-                lambda a: "leaf_topk" if a[11] else "leaf_topk@probe")]
+                lambda a: "leaf_topk" if a[11] else "leaf_topk@probe"),
+               (walk_kernel, "early_walk_cuda", lambda a: "early_walk@calls")]
     saved = [(conformal, "simulate_search", conformal.simulate_search)]
 
     def simulate_search(*args, _fn=conformal.simulate_search, **kw):
@@ -441,6 +481,9 @@ def capture_largest_inputs(captured: dict):
         def wrapped(*args, _fn=fn, _naming=naming):
             out = _fn(*args)
             name = _naming(args)
+            if name == "early_walk@calls":
+                captured.setdefault(name, []).append(args)
+                return out
             size = _call_size(name, args, out)
             if size > captured.get(name, (0, None))[0]:
                 captured[name] = (size, args)
@@ -799,12 +842,17 @@ def _stack_results(rs, n_leaves: int):
 
 
 def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
-              device: str = "cuda", captured: dict | None = None) -> dict:
+              device: str = "cuda", captured: dict | None = None,
+              label: str = "") -> dict:
     """``search_early`` for the first ``n_early`` queries, k = 1 and 5,
     exact (filters off) and at target 0.99, beside the batched path's
     figures for the same queries (``batched``: ``run_end_to_end``'s
-    results); asserts exact == brute force and (on the card) that the
-    lower-bound and fused filter kernels launched."""
+    results, keyed (``"default"``, k, target)); asserts exact == brute
+    force and (on the card) that the lower-bound, fused filter and walk
+    kernels launched, the walk once a call, and holds every walk launch
+    bitwise against the plain walk on its own arguments.  The largest k =
+    5 exact call is kept in ``captured`` (``early_walk``, or
+    ``early_walk@isax`` under an ``isax`` label) for the kernel checks."""
     import torch
     from repro_torch.core import search
     idx = lfi.index
@@ -817,6 +865,7 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
                             use_filters=target is not None, **kw)
     results = {}
     captured = {} if captured is None else captured
+    captured.pop("early_walk@calls", None)
     _zero_counters()
     with capture_largest_inputs(captured):
         for k in (1, 5):
@@ -833,6 +882,7 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
                 results[(k, name)] = (_stack_results(rs, idx.n_leaves),
                                       np.asarray(walls))
     launches, by_instance = _launch_counters(), _instance_launches()
+    calls = captured.pop("early_walk@calls", [])
 
     for (k, name), (r, walls) in results.items():
         exact = results[(k, "exact")][0]
@@ -840,8 +890,8 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
         b_exact = batched[("default", k, "exact")][0]
         assert r.dists.shape == (n_early, k), r.dists.shape
         assert np.isfinite(r.dists).all(), f"non-finite dists k={k} {name}"
-        log(f"search_early k={k} target={name:5s}: per query wall median "
-            f"{np.median(walls) * 1e3:.2f} ms, p90 "
+        log(f"{label}search_early k={k} target={name:5s}: per query wall "
+            f"median {np.median(walls) * 1e3:.2f} ms, p90 "
             f"{np.percentile(walls, 90) * 1e3:.2f} ms; searched="
             f"{r.searched.mean():.1f}/{r.n_leaves} pruned_lb="
             f"{r.pruned_lb.mean():.1f} pruned_filter="
@@ -854,10 +904,191 @@ def run_early(lfi, queries: np.ndarray, batched: dict, *, n_early: int = 32,
             f"{_recall(b.ids[:n_early], b_exact.ids[:n_early]):.4f}")
     _brute_force_check(lfi, queries, [results[(k, "exact")][0]
                                       for k in (1, 5)],
-                       n_early, "search_early ")
-    _check_launches(launches, by_instance, SEARCH_KERNELS, "search_early",
-                    on_card)
+                       n_early, f"{label}search_early ")
+    _check_launches(launches, by_instance, SEARCH_KERNELS,
+                    f"{label}search_early", on_card)
+    if on_card:
+        assert launches["early_walk"] == len(results) * n_early == \
+            len(calls), (launches["early_walk"], len(calls))
+        t0 = time.perf_counter()
+        for call in calls:
+            _hold_early(call, "", quiet=True)
+        log(f"{label}search_early: early_walk bitwise equal to the plain "
+            f"walk on all {len(calls)} calls of the path (top-k values, ids "
+            f"and the three counters; {time.perf_counter() - t0:.1f} s), "
+            f"one launch a call")
+        # the largest k = 5 exact call, by the leaves it searched
+        exact5 = results[(5, "exact")][0].searched
+        first = list(results).index((5, "exact")) * n_early
+        i = int(np.argmax(exact5))
+        key = "early_walk@isax" if label.startswith("isax") else "early_walk"
+        captured[key] = (int(exact5[i]), calls[first + i])
     return {"launches": launches, "results": results}
+
+
+#: search_early's steps, as ``early_breakdown`` times them
+EARLY_STEPS = ("query to the card", "bounds", "offsets (host spline)",
+               "predictions", "argsort", "walk", "ids and the copy")
+
+
+def early_breakdown(lfi, queries: np.ndarray, *, k: int = 5,
+                    n_early: int = 32, device: str = "cuda") -> dict:
+    """Where a ``search_early`` call's time goes, exact and at target 0.99:
+    its steps as ``search.search_early`` takes them, each ended by a
+    synchronize (host clock), medians over the first ``n_early`` queries,
+    beside the median of the whole call (no synchronize inside) on the
+    same queries.  A sum above the whole call is the synchronizes' cost;
+    every step's result is asserted equal to the call's."""
+    import torch
+    from repro_torch.core import bounds, search
+    from repro_torch.kernels.early_walk import kernel as walk_kernel
+    from repro_torch.kernels.early_walk import ref as walk_ref
+    idx = lfi.index
+    dev = idx.device
+    out = {}
+    for name, target in (("exact", None), ("0.99", 0.99)):
+        steps = {s: [] for s in EARLY_STEPS}
+        whole = []
+        for i in range(n_early):
+            marks = [time.perf_counter()]
+
+            def mark():
+                _sync(device)
+                marks.append(time.perf_counter())
+            q = torch.as_tensor(np.asarray(queries[i], np.float32),
+                                device=dev).reshape(1, -1)
+            mark()
+            d_lb = bounds.lower_bounds(idx, q)
+            mark()
+            off = None if target is None else lfi.tuner.offsets(target)
+            mark()
+            d_F = (torch.full(d_lb.shape, -math.inf, device=dev)
+                   if target is None else search.predictions_for_all_leaves(
+                       idx, lfi.filter_params, lfi.leaf_ids, q, off))
+            mark()
+            lb_row, dF_row = d_lb[0].contiguous(), d_F[0].contiguous()
+            order = torch.argsort(lb_row, stable=True)
+            mark()
+            args = (idx.series, idx.leaf_start, idx.leaf_size, q[0], lb_row,
+                    dF_row, order, k)
+            walk = (walk_ref.early_walk(*args) if dev.type == "cpu" else
+                    walk_kernel.early_walk_cuda(*args, idx.max_leaf_size))
+            mark()
+            ids = torch.where(walk[1] >= 0, idx.order[walk[1].clamp(
+                0, idx.n_series - 1)], -1).cpu().numpy()
+            mark()
+            for s, a, b in zip(EARLY_STEPS, marks, marks[1:]):
+                steps[s].append(b - a)
+            _sync(device)
+            t0 = time.perf_counter()
+            r = search.search_early(
+                idx, queries[i], k=k, quality_target=target,
+                use_filters=target is not None,
+                filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
+                tuner=lfi.tuner, device=device)
+            _sync(device)
+            whole.append(time.perf_counter() - t0)
+            assert np.array_equal(r.ids[0], ids), (r.ids, ids)
+        med = {s: float(np.median(v)) * 1e3 for s, v in steps.items()}
+        med["sum"] = sum(med.values())
+        med["whole call"] = float(np.median(whole)) * 1e3
+        out[name] = med
+        log(f"search_early breakdown k={k} target={name} (ms, medians over "
+            f"{n_early} queries, each step ended by a synchronize): "
+            + ", ".join(f"{s} {v:.3f}" for s, v in med.items()))
+    return out
+
+
+def _sim_matrices(lfi, queries: np.ndarray, target: float | None):
+    """(d_lb, d_L, d_F) of ``queries`` on the port's kernels, copied to the
+    host: the bounds (``box_lb``), the node-wise nearest distances (the
+    pairwise kernel) and the predictions (the fused filter kernel) less
+    the tuner's offsets at ``target`` (``None``: no d_F)."""
+    import torch
+    from repro_torch.core import bounds, conformal, filter_training, search
+    idx = lfi.index
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
+    d_lb = bounds.lower_bounds(idx, q).cpu().numpy()
+    d_L = filter_training.nodewise_nn_distances(idx, q).cpu().numpy()
+    if target is None:
+        return d_lb, d_L, None
+    if lfi.tuner is None or len(lfi.leaf_ids) == 0:
+        return d_lb, d_L, np.full_like(d_lb, -np.inf)
+    pred = search.predictions_for_all_leaves(
+        idx, lfi.filter_params, lfi.leaf_ids, q, None).cpu().numpy()
+    off = conformal.scatter_offsets(lfi.tuner, lfi.leaf_ids, idx.n_leaves,
+                                    target)
+    return d_lb, d_L, pred - off[None, :]
+
+
+def run_simulators(lfi, series: np.ndarray, queries: np.ndarray, *,
+                   n_sim: int = 64, n_val: int = 64, target: float = 0.99,
+                   device: str = "cuda") -> dict:
+    """The paper's comparison methods (``repro_torch.core.baselines``) on
+    the port's own matrices for the index's first ``n_sim`` queries,
+    tuned on ``n_val`` validation queries (``make_query_set`` at noise 0.25,
+    seed 999, as the reference's ``benchmarks/common.py:98-103``, which
+    takes 120) as ``benchmarks/paper_tables.py:57-72`` tunes them: each
+    one's recall, mean searched leaves and pruning, beside
+    ``search_early``'s searched leaves for the same queries at k = 1,
+    ``target``.  Asserts that exact and LR recall 1 and that LeaFi with the
+    oracle filter (d_F = d_L) searches no more leaves than exact, query by
+    query, with the same final bsf."""
+    from repro_torch.core import baselines, search
+    from repro_torch.data.series import make_query_set
+    t0 = time.perf_counter()
+    queries = np.asarray(queries[:n_sim], np.float32)
+    d_lb, d_L, d_F = _sim_matrices(lfi, queries, target)
+    vq = make_query_set(series, n_val, 0.25, seed=999)
+    val_d_lb, val_d_L, _ = _sim_matrices(lfi, vq, None)
+    t_mat = time.perf_counter() - t0
+    log(f"simulators: {len(queries)} queries x {d_lb.shape[1]} leaves; "
+        f"{n_val} validation queries (the reference's benchmarks take 120; "
+        f"cut to keep the phase short); matrices made in "
+        f"{t_mat:.2f} s on {lfi.index.device}")
+    eps = baselines.tune_epsilon(val_d_lb, val_d_L, target)
+    de_thr = baselines.tune_delta(val_d_lb, val_d_L, target)
+    pros = baselines.train_pros(val_d_lb, val_d_L)
+    lt = baselines.train_lt(val_d_lb, val_d_L, target)
+    variants = {
+        "exact": lambda: baselines.exact_search(d_lb, d_L),
+        "leafi": lambda: baselines.leafi_search(d_lb, d_L, d_F),
+        "eps": lambda: baselines.epsilon_search(d_lb, d_L, eps),
+        "deps": lambda: baselines.delta_epsilon_search(d_lb, d_L, de_thr),
+        "pros": lambda: baselines.pros_search(d_lb, d_L, pros),
+        "lt": lambda: baselines.lt_search(d_lb, d_L, lt),
+        "lr": lambda: baselines.lr_optimal_search(d_lb, d_L),
+    }
+    res = {name: fn() for name, fn in variants.items()}
+    kw = dict(filter_params=lfi.filter_params, leaf_ids=lfi.leaf_ids,
+              tuner=lfi.tuner, device=device)
+    walked = np.concatenate([search.search_early(
+        lfi.index, q, k=1, quality_target=target, **kw).searched
+        for q in queries])
+    out = {}
+    for name, r in res.items():
+        out[name] = r.summary()
+        log(f"simulator {name:5s} (target {target}): recall="
+            f"{out[name]['recall']:.4f} searched={out[name]['searched']:.1f}"
+            f"/{r.n_leaves} pruning={out[name]['pruning_ratio']:.4f}")
+    log(f"simulators: tuned eps={eps:g}, delta-eps threshold={de_thr:.4f}, "
+        f"LT multiplier={lt.multiplier:g}; search_early at k=1, target "
+        f"{target} on the same queries: searched={walked.mean():.1f} (the "
+        f"leafi simulator {out['leafi']['searched']:.1f}; printed only: the "
+        "walk's distances and the pairwise kernel's differ in the last "
+        "ulps)")
+    oracle = baselines.leafi_search(d_lb, d_L, d_F=d_L)
+    assert res["exact"].recall.mean() == 1.0, out["exact"]
+    assert res["lr"].recall.mean() == 1.0, out["lr"]
+    assert (oracle.searched <= res["exact"].searched).all()
+    assert np.array_equal(oracle.bsf, res["exact"].bsf)
+    wall = time.perf_counter() - t0
+    log(f"simulators: exact and LR recall 1; the oracle filter searches "
+        f"{oracle.searched.mean():.1f} leaves a query against exact's "
+        f"{res['exact'].searched.mean():.1f}, no query more, the same final "
+        f"bsf; phase wall {wall:.1f} s")
+    return {"summary": out, "walk_searched": float(walked.mean()),
+            "wall_s": wall}
 
 
 def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
@@ -1740,6 +1971,8 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         nbytes = 4 * (Q * d + 2 * L * d + Q * L)
     elif name == "replay":
         return _replay_bound(args)
+    elif name == "early_walk":
+        return _early_bound(args)
     elif name == "leaf_topk":
         return _leaf_topk_bound(args, passes=passes)
     elif name in ("train_forward", "train_backward_sgd"):
@@ -1804,6 +2037,23 @@ def _replay_bound(args) -> tuple:
     from repro_torch.kernels.replay import ref as replay_ref
     leaf_d, _, d_lb, d_F, order, k = args
     nbytes = replay_ref.bound_bytes(leaf_d, d_lb, d_F, order, k)
+    return nbytes / roofline.H100.hbm_bw * 1e3, "bytes"
+
+
+def _early_bound(args, stats: dict | None = None) -> tuple:
+    """The early walk's bytes bound (its operations, 3m a row read, sit
+    well under the bytes' time): ``ref.bound_bytes`` on this call's data,
+    the searched leaves from the plain walk (``stats``, where given, its
+    ``stats``)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels.early_walk import ref as walk_ref
+    if stats is None:
+        stats = {}
+        out = walk_ref.early_walk(*args[:-1], stats=stats)
+        stats["visited"] = int(out[3])
+    nbytes = walk_ref.bound_bytes(args[2], stats["searched"],
+                                  stats["visited"], args[3].shape[0],
+                                  args[7])
     return nbytes / roofline.H100.hbm_bw * 1e3, "bytes"
 
 
@@ -1953,6 +2203,8 @@ def _kernel_tables():
     import torch
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.box_lb import ref as box_ref
+    from repro_torch.kernels.early_walk import kernel as walk_kernel
+    from repro_torch.kernels.early_walk import ref as walk_ref
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.filter_train import ref as train_ref
@@ -1973,7 +2225,8 @@ def _kernel_tables():
                  "replay": replay_kernel.replay_cascade_cuda,
                  "train_forward": train_kernel.train_forward_cuda,
                  "train_backward_sgd": train_kernel.train_backward_sgd_cuda,
-                 "leaf_topk": leaf_kernel.leaf_topk_cuda}
+                 "leaf_topk": leaf_kernel.leaf_topk_cuda,
+                 "early_walk": walk_kernel.early_walk_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
@@ -1986,7 +2239,9 @@ def _kernel_tables():
                 "train_forward": lambda *a: train_ref.train_forward(*a[:-2]),
                 "train_backward_sgd":
                     lambda *a: train_ref.train_backward_sgd(*a[:-2]),
-                "leaf_topk": leaf_ref.leaf_topk}
+                "leaf_topk": leaf_ref.leaf_topk,
+                # the kernel's call ends with max_leaf, which sizes its items
+                "early_walk": lambda *a: walk_ref.early_walk(*a[:-1])}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
 
@@ -2017,6 +2272,44 @@ def _hold_replay(args, label: str) -> dict:
         f"{same} (tolerance 0: {KERNELS['replay'][3]})")
     assert len(got) == len(want) and all(same), f"{label} disagrees"
     return {"shapes": shapes, "instance": which, "max_abs_err": 0.0,
+            "tolerance": 0.0}
+
+
+def _hold_early(args, label: str, quiet: bool = False) -> dict:
+    """One early-walk call, its five outputs (top-k values and ids, the
+    searched, visited and filter-pruned counts) each asserted bitwise equal
+    to the plain walk's.  Unless ``quiet``, also prints the launch's layout
+    (grid, threads, registers, ring) and its time from a CUDA graph beside
+    its bound (``ref.bound_bytes``)."""
+    import torch
+    from repro_torch.kernels.early_walk import kernel as walk_kernel
+    from repro_torch.kernels.early_walk import ref as walk_ref
+    got = walk_kernel.early_walk_cuda(*args)
+    torch.cuda.synchronize()
+    stats: dict = {}
+    want = walk_ref.early_walk(*args[:-1], stats=stats)
+    torch.cuda.synchronize()
+    same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
+    assert all(same), f"early_walk {label} disagrees: {same}"
+    if quiet:
+        return {"max_abs_err": 0.0, "tolerance": 0.0}
+    series, q, k = args[0], args[3], args[7]
+    m = q.shape[0]
+    lay = walk_kernel.layout(k, walk_kernel.vectorized(series, q))
+    stats["visited"] = int(want[3])
+    bound_ms, _ = _early_bound(args, stats)
+    graph_ms = _graph_ms(lambda: walk_kernel.early_walk_cuda(*args))
+    counts = [int(x) for x in want[2:]]
+    shapes = (f"L={args[1].shape[0]}, m={m}, max_leaf={args[8]}, k={k}, "
+              f"vectorized={walk_kernel.vectorized(series, q)}")
+    log(f"kernel {label} at {shapes} (grid {lay['blocks']} blocks x "
+        f"{lay['threads']} threads, {lay['registers']} registers, ring "
+        f"{lay['ring']} slots; searched/visited/filter-pruned {counts}): "
+        f"bitwise equal per output {same} (tolerance 0: "
+        f"{KERNELS['early_walk'][3]}); [{graph_ms:.4f}] ms from a CUDA "
+        f"graph, bound {bound_ms:.5f} ms ({bound_ms / graph_ms:.1%})")
+    return {"shapes": shapes, "layout": lay, "counts": counts,
+            "graph_ms": graph_ms, "bound_ms": bound_ms, "max_abs_err": 0.0,
             "tolerance": 0.0}
 
 
@@ -2169,6 +2462,8 @@ def _hold(name: str, args, label: str) -> dict:
         return _hold_replay(args, label)
     if name == "leaf_topk":
         return _hold_leaf_topk(args, label)
+    if name == "early_walk":
+        return _hold_early(args, label)
     _, _, (atol, rtol), why = KERNELS[name]
     kernel_fn, plain_fn, _ = _kernel_tables()
     got = _outputs(name, kernel_fn[name], args)
@@ -2202,7 +2497,8 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     import torch
     held = _hold(name, args, label)
     kernel_fn, plain_fn, library_fn = _kernel_tables()
-    if name not in ("box_lb", "replay", "leaf_topk") and label == name:
+    if name not in ("box_lb", "replay", "leaf_topk", "early_walk") \
+            and label == name:
         # what the same check reads for a TF32 run of the plain version
         want = _outputs(name, plain_fn[name], args)
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -2221,9 +2517,11 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
     graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
     # the plain replay is a host loop of ~20 launches a position, the plain
-    # candidate pass a bucket loop of gathers and sorts (~0.2-0.5 s a batch)
+    # candidate pass a bucket loop of gathers and sorts (~0.2-0.5 s a batch),
+    # the plain walk ~25 launches and a sync a searched leaf
     plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a),
-                        reps=2 if name in ("replay", "leaf_topk") else 20)
+                        reps=2 if name in ("replay", "leaf_topk",
+                                           "early_walk") else 20)
     lib = library_fn.get(name)
     library_ms = (None if lib is None
                   else _time_ms(lambda f=lib, a=args: f(*a)))
@@ -2524,6 +2822,75 @@ def replay_calls(device: str = "cuda") -> list:
     return calls
 
 
+#: (L, m, max_leaf, k, kind) of the early walk's held calls: k = 1, 5, 32
+#: (the last in registers), 33 and 257 (in the output row and the slots);
+#: m = 65 (no 16-byte loads), 96, 128 and 256; a leaf of 1,000 rows (16
+#: items); the kind: "ties" (series and query on a 0.5 grid with rows
+#: repeated, so tied distances, bounds rounded to 0.1 so tied bounds, and
+#: d_F at +-inf on 10% of the leaves each), "small" (half the leaves empty or
+#: smaller than k), "nofilter" (d_F = -inf: no position filter-pruned),
+#: "inf" (d_F at +-inf on 20% each) or "first" (one leaf's bound 0, every
+#: other above any distance: the walk stops right after its first leaf)
+RAGGED_EARLY = ((400, 65, 1000, 5, "ties"), (500, 96, 100, 33, "small"),
+                (300, 128, 256, 257, "nofilter"), (800, 128, 245, 32, "ties"),
+                (1000, 256, 245, 1, "first"), (600, 96, 60, 5, "inf"),
+                (200, 256, 256, 1, "nofilter"))
+
+
+def early_walk_calls(device: str = "cuda") -> list:
+    """The early walk's held calls (numpy seed 6), at ``RAGGED_EARLY``:
+    (series, leaf_start, leaf_size, q, d_lb, d_F, order, k, max_leaf),
+    the bounds a random share of each leaf's nearest distance, the
+    predictions 0.9-1.3 times it, the order a stable argsort of the
+    bounds."""
+    import torch
+    rng = np.random.default_rng(6)
+    calls = []
+    for L, m, max_leaf, k, kind in RAGGED_EARLY:
+        sizes = rng.integers(0, max_leaf + 1, L)
+        if kind == "small":
+            sizes = np.where(rng.random(L) < 0.5, rng.integers(0, k, L),
+                             sizes)
+        sizes[rng.integers(L)] = max_leaf
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        n = int(sizes.sum())
+        series = (rng.standard_normal((n + max_leaf, m)).cumsum(1)
+                  / np.sqrt(m)).astype(np.float32)
+        q = series[rng.integers(n)] + np.float32(0.05) * rng.standard_normal(
+            m).astype(np.float32)
+        if kind == "ties":
+            series = np.round(series * 2) / 2
+            q = np.round(q * 2) / 2
+            rows = rng.integers(0, n, (n // 10, 2))
+            series[rows[:, 0]] = series[rows[:, 1]]
+        d = np.sqrt(((series[:n].astype(np.float64) - q) ** 2).sum(1))
+        mins = np.full(L, np.inf)
+        np.minimum.at(mins, np.repeat(np.arange(L), sizes), d)
+        mins = np.where(sizes > 0, mins, rng.uniform(0.0, 3.0, L))
+        d_lb = mins * rng.uniform(0.0, 1.0, L)
+        d_F = mins * rng.uniform(0.9, 1.3, L)
+        if kind == "ties":
+            d_lb = np.round(d_lb, 1)
+        if kind == "nofilter":
+            d_F[:] = -np.inf
+        if kind in ("ties", "inf"):
+            share = 0.1 if kind == "ties" else 0.2
+            for v in (np.inf, -np.inf):
+                d_F[rng.random(L) < share] = v
+        if kind == "first":
+            leaf = int(np.argmax(sizes))
+            d_lb[:] = 1e9
+            d_lb[leaf] = 0.0
+        order = np.argsort(d_lb.astype(np.float32), kind="stable")
+        t = [torch.as_tensor(np.ascontiguousarray(a), device=device)
+             for a in (series.astype(np.float32), starts.astype(np.int64),
+                       sizes.astype(np.int64), q.astype(np.float32),
+                       d_lb.astype(np.float32), d_F.astype(np.float32),
+                       order.astype(np.int64))]
+        calls.append(tuple(t) + (k, max_leaf))
+    return calls
+
+
 def _box_args(rng, Q: int, L: int, d: int, device: str) -> tuple:
     """Points and boxes with open sides at -inf/+inf (as the SAX extremes),
     one empty box (lo = +inf) and one with a NaN side: the last two reach
@@ -2624,7 +2991,8 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.leaf_topk import ref as leaf_ref
-    ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls()}
+    ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls(),
+              "early_walk": early_walk_calls()}
     ragged["leaf_topk"] = [_leaf_topk_fresh(c, impl)
                            for c in leaf_topk_calls()
                            + staged_leaf_topk_calls()
@@ -2679,6 +3047,15 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 "chain": _replay_chain(cal, label)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
+        if name == "early_walk":
+            row.update(layout=res["layout"], counts=res["counts"],
+                       path_calls="every call of both search_early phases "
+                       "held bitwise")
+            if "early_walk@isax" in captured:
+                row["isax_call"] = _check_call(
+                    name, captured["early_walk@isax"][1],
+                    "early_walk (the iSAX phase's largest k = 5 exact call)",
+                    power)
         if name == "leaf_topk":
             keep = ("instance", "max_abs_err", "id_diff", "near_ties", "ms",
                     "graph_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2846,7 +3223,8 @@ def main() -> int:
     power = card.split(",")[-1].strip()
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
-                         "filter_train", "leaf_topk", "tc_rounding"])
+                         "filter_train", "leaf_topk", "tc_rounding",
+                         "early_walk"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
     from repro_torch.kernels.filter_train import kernel as train_kernel
@@ -2881,6 +3259,10 @@ def main() -> int:
     paths.append(phase("search_early", run_early, e2e["lfi"],
                        e2e["queries"], e2e["results"], device="cuda",
                        captured=captured)["launches"])
+    phase("search_early breakdown", early_breakdown, e2e["lfi"],
+          e2e["queries"], device="cuda")
+    phase("simulators", run_simulators, e2e["lfi"], series, e2e["queries"],
+          device="cuda")
     paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
                        e2e["targets"], e2e["results"], device="cuda",
                        captured=captured)["launches"])
@@ -2896,6 +3278,13 @@ def main() -> int:
           reps=3, label="isax ")
     phase("isax collect breakdown", collect_breakdown, isax["lfi"], "isax ")
     paths.append(isax["launches"])
+    paths.append(phase("isax search_early", run_early, isax["lfi"],
+                       isax["queries"], {
+                           ("default", k, t): isax["results"][
+                               ("float32", k, t)]
+                           for k in (1, 5) for t in ("exact", "0.99")},
+                       device="cuda", captured=captured,
+                       label="isax ")["launches"])
     del isax                              # the iSAX index leaves the card
     paths += [d["launches"] for d in
               phase("datasets", run_datasets, device="cuda").values()]

@@ -11,12 +11,11 @@ Three forms over the same semantics:
 * ``search_early`` — latency form for one query: leaves are visited in
   lower-bound order, a leaf whose filter prediction exceeds the
   best-so-far is skipped without a scan, and the first lower bound above
-  the best-so-far ends the search (every later leaf is prunable too).  The
-  reference runs the loop on the device; here the bounds and predictions
-  are computed on the card and copied to the host once, and the host makes
-  the stop and skip decisions on those float32 values.  The leaves the walk
-  may still scan are scored on the card ahead of it, in rounds of 16 that
-  double up to 512, one round trip each.
+  the best-so-far ends the search (every later leaf is prunable too).  As
+  the reference runs the walk as one device program, the card runs it as
+  one launch of the early-walk kernel (``kernels/early_walk``), after the
+  bounds, the predictions and a device argsort; the result comes to the
+  host in one copy at the end.
 
 ``quality_target=None`` (or ``use_filters=False``) disables the filters and
 the search is exact.
@@ -32,14 +31,12 @@ import torch
 from . import bounds as bounds_mod
 from . import conformal, engine, filters
 from .flat_index import FlatIndex
+from ..kernels import common
 from ..kernels.common import Device, resolve_device
-from ..kernels.replay import ref as replay_ref
+from ..kernels.early_walk import kernel as walk_kernel
+from ..kernels.early_walk import ref as walk_ref
 
 _INF = float("inf")
-
-# leaves search_early scores in its first device round trip, doubling each
-# round up to the second number
-_EARLY_CHUNK, _EARLY_CHUNK_MAX = 16, 512
 
 
 @dataclasses.dataclass
@@ -235,18 +232,6 @@ def search_batched_grouped(index: FlatIndex, queries,
     return out
 
 
-def _leaf_distances(index: FlatIndex, q: torch.Tensor, leaves: np.ndarray,
-                    row_ids: torch.Tensor) -> np.ndarray:
-    """(C, max_leaf) distances sqrt(Σ(slab − q)²) of ``q`` to the rows of
-    each leaf, rows past the leaf's size +inf, copied to the host."""
-    sel = torch.as_tensor(leaves, device=q.device)
-    rows = index.leaf_start[sel][:, None] + row_ids               # (C, R)
-    diff = index.series[rows] - q
-    d = torch.sqrt((diff * diff).sum(dim=-1))
-    d = torch.where(row_ids < index.leaf_size[sel][:, None], d, _INF)
-    return d.cpu().numpy()
-
-
 def search_early(index: FlatIndex, query, *, k: int = 1,
                  filter_params=None, leaf_ids: Optional[np.ndarray] = None,
                  tuner: Optional[conformal.AutoTuner] = None,
@@ -258,18 +243,16 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
     Counters as the reference's: ``searched`` leaves scanned, ``pruned_lb``
     = L − (leaves visited), ``pruned_filter`` visited leaves skipped because
     d_F > bsf.  The visit order is a stable argsort of the lower bounds.
-    A scan's distances are sqrt(Σ(slab − q)²) over ``max_leaf`` rows from
-    the leaf's start, rows past its size +inf, merged into the running
-    top-k with the engine's stable merge (ties to the running top-k).
-    ``device=None`` means the card; the index must live there.
+    A scan's distances are sqrt(Σ(s − q)²) over the leaf's rows, summed in
+    the early-walk kernel's fixed order (``walk_ref.row_distances``), merged
+    into the running top-k stably (ties to the running top-k, then the
+    lower row).  ``device=None`` means the card; the index must live there.
 
-    The host walks the visit order on float32 copies of the bounds and
-    predictions.  The leaves it may scan next (d_lb ≤ bsf and d_F ≤ bsf at
-    the current bsf, which only falls) are scored on the device ahead of
-    the walk, ``_EARLY_CHUNK`` at first and twice as many each round (at
-    most ``_EARLY_CHUNK_MAX``), one round trip each; a leaf scored but never
-    reached costs device work, not a different answer.  A leaf with no distance below the bsf leaves
-    the merge unchanged, so it is counted without one.
+    On the card the bounds (``box_lb``), the predictions (the fused filter
+    kernel), the argsort and the walk (one ``early_walk`` launch) run with
+    nothing copied to the host; the ids are mapped through ``index.order``
+    there too, and the result comes back in one copy.  On the CPU the walk
+    is the plain loop (``walk_ref.early_walk``), one leaf at a time.
     """
     dev = resolve_device(device)
     q = torch.as_tensor(np.asarray(query, np.float32),
@@ -277,46 +260,24 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
     d_lb, d_F = _bounds_and_predictions(index, q, filter_params, leaf_ids,
                                         tuner, quality_target, use_filters,
                                         dev)
-    lb_row = d_lb[0].cpu().numpy()
-    order = np.argsort(lb_row, kind="stable")
-    lb_ord = lb_row[order]                         # non-decreasing
-    dF_ord = d_F[0].cpu().numpy()[order]
-    starts = index.leaf_start.cpu().numpy()
-    L, R = index.n_leaves, index.max_leaf_size
-    row_ids = torch.arange(R, device=dev)
-    topk_d = torch.full((1, k), _INF)
-    topk_i = torch.full((1, k), -1, dtype=torch.int64)
-    bsf = np.float32(_INF)
-    n_searched = n_pruned_filter = 0
-    chunk, scored, dists = _EARLY_CHUNK, 0, {}
-    p = 0
-    while p < L and lb_ord[p] <= bsf:
-        if dF_ord[p] > bsf:
-            n_pruned_filter += 1
-            p += 1
-            continue
-        if p >= scored:        # score the next leaves the walk may scan
-            stop = int(np.searchsorted(lb_ord, bsf, side="right"))
-            pos = p + np.flatnonzero(dF_ord[p:stop] <= bsf)[:chunk]
-            scored = int(pos[-1]) + 1 if len(pos) == chunk else stop
-            dists = dict(zip(pos.tolist(), _leaf_distances(
-                index, q, order[pos], row_ids)))
-            chunk = min(2 * chunk, _EARLY_CHUNK_MAX)
-        d = dists.pop(p)
-        if d.min() < bsf:
-            start = int(starts[order[p]])
-            topk_d, topk_i = replay_ref.merge_topk(
-                topk_d, topk_i, torch.from_numpy(d)[None],
-                torch.arange(start, start + R)[None], k)
-            bsf = topk_d[0, -1].numpy()
-        n_searched += 1
-        p += 1
-    ids = torch.as_tensor(topk_i, device=dev)
-    orig = torch.where(ids >= 0, index.order[ids.clamp(0, index.n_series - 1)],
-                       -1)
+    lb_row, dF_row = d_lb[0].contiguous(), d_F[0].contiguous()
+    order = torch.argsort(lb_row, stable=True)
+    args = (index.series, index.leaf_start, index.leaf_size, q[0], lb_row,
+            dF_row, order, k)
+    if common.on_cpu(*args[:-1]):
+        topk_d, topk_i, n_s, n_vis, n_pf = walk_ref.early_walk(*args)
+    else:
+        topk_d, topk_i, n_s, n_vis, n_pf = walk_kernel.early_walk_cuda(
+            *args, index.max_leaf_size)
+    ids = torch.where(topk_i >= 0,
+                      index.order[topk_i.clamp(0, index.n_series - 1)], -1)
+    packed = torch.cat([ids, topk_d.view(torch.int32).to(torch.int64),
+                        torch.stack([n_s, n_vis, n_pf]).to(torch.int64)])
+    host = packed.cpu().numpy()                    # the one copy
+    L = index.n_leaves
+    n_s, n_vis, n_pf = host[2 * k:].astype(np.int32)
     return SearchResult(
-        dists=topk_d.numpy(), ids=orig.cpu().numpy(),
-        searched=np.asarray([n_searched], np.int32),
-        pruned_lb=np.asarray([L - p], np.int32),
-        pruned_filter=np.asarray([n_pruned_filter], np.int32),
-        n_leaves=L)
+        dists=host[k:2 * k].astype(np.int32).view(np.float32)[None],
+        ids=host[None, :k], searched=np.asarray([n_s], np.int32),
+        pruned_lb=np.asarray([L - n_vis], np.int32),
+        pruned_filter=np.asarray([n_pf], np.int32), n_leaves=L)

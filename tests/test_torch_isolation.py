@@ -166,7 +166,8 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "fused_filter_mlp_bf16",
                                     "fused_filter_mlp_int8", "box_lb",
                                     "filter_mlp", "replay", "train_forward",
-                                    "train_backward_sgd", "leaf_topk"}
+                                    "train_backward_sgd", "leaf_topk",
+                                    "early_walk"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -262,7 +263,9 @@ def test_new_modules_are_checked():
     for mod in ("analysis/roofline.py", "bench/filters_bench.py",
                 "kernels/filter_train/kernel.py",
                 "kernels/filter_train/ref.py", "data/series.py",
-                "kernels/leaf_topk/kernel.py", "kernels/leaf_topk/ref.py"):
+                "kernels/leaf_topk/kernel.py", "kernels/leaf_topk/ref.py",
+                "kernels/early_walk/kernel.py", "kernels/early_walk/ref.py",
+                "core/baselines.py", "core/selection.py"):
         assert mod in names
 
 

@@ -81,13 +81,16 @@ def test_chip_limits_are_unchanged():
     training kernels' limits (``test_torch_filter_train.py``): dpred and
     the updated velocities within 2e-5 of their own largest value, with no
     absolute term (the parameters are held bitwise to their own update).
-    The candidate pass takes the first port's float32 limit too."""
+    The candidate pass takes the first port's float32 limit too.  The early
+    walk sums each row in a fixed order its plain version repeats, then
+    compares and selects: bitwise as well."""
     limits = _chip_limits()
     assert set(limits) == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
                            "box_lb", "filter_mlp", "replay", "train_forward",
-                           "train_backward_sgd", "leaf_topk"}
+                           "train_backward_sgd", "leaf_topk", "early_walk"}
     assert limits.pop("replay") == (0.0, 0.0)
+    assert limits.pop("early_walk") == (0.0, 0.0)
     assert limits.pop("train_forward") == (0.0, 2e-5)
     assert limits.pop("train_backward_sgd") == (0.0, 2e-5)
     assert set(limits.values()) == {(1e-4, 1e-5)}
