@@ -63,7 +63,19 @@
    and LR, each one's recall, searched leaves and pruning beside
    ``search_early``'s searched leaves at k = 1, 0.99; asserts that exact
    and LR recall 1 and that the oracle filter (d_F = d_L) searches no more
-   leaves than exact, query by query, with the same final bsf.
+   leaves than exact, query by query, with the same final bsf.  Then the
+   filter types (``run_filter_types``) on the same DSTree index: for the
+   paper's CNN (channels 256, ksize 3) and LSTM (hidden 64) filter
+   backbones, parameters from the port's ``filters.INIT`` (a CUDA generator
+   seeded 0; y_mean and y_std copied from the MLP stack, so the
+   predictions sit on the distance scale), the tuners refit on the index's
+   calibration split (one launch of the backbone's kernel at Q = 180), 64
+   queries through ``LeaFiIndex.search`` at exact and 0.99, k = 1 and 5,
+   and ``search_early`` on 8 of them at k = 5, 0.99: pruning, searched
+   leaves, recall against exact search and wall time per batch and per
+   query, and recall@1 at 0.99 on the calibration split beside the
+   tuner's knots; asserts one launch of the backbone's kernel a prediction
+   call and none of the fused MLP kernel.
 5. The grouped per-target search (``search_batched_grouped``) on the 256
    per-query-target queries, k = 1 and 5, beside the vectorised per-query
    batch: recall, pruning, the share of identical ids; asserts the
@@ -135,7 +147,13 @@
    fused float32 kernel at its own call.  The training kernels are held on
    one step of the largest build (every output: dpred, or the updated
    parameters and velocities) and, untimed, at F = 1 and 3, m = h = 96,
-   128 and 65, h != m and batches 128, 8 and 4.  The build's ``-Xptxas -v`` lines
+   128 and 65, h != m and batches 128, 8 and 4.  The CNN and LSTM kernels
+   are held at their calibration call (F = 4096, Q = 180) and at Q = 1,
+   timed (reps by their bound), a TF32 plain run beside as the control,
+   and untimed at ``RAGGED_CNN`` and ``RAGGED_RNN`` (m = 96 and 33,
+   channels 64 and 100, ksize 1, 2, 3 and 5; hidden 32, 64, 100 and 2500,
+   the last two reading the weights through L2 and 2500 keeping its state
+   in memory; F = 1 and 3, Q = 1, 33 and 180).  The build's ``-Xptxas -v`` lines
    (registers, shared memory, spills) are printed per kernel; the
    redesigned kernels must not spill.
 9. Prints ``{"kernels": [...]}`` and, as the last line,
@@ -168,6 +186,11 @@ LEAF_TOPK_SOURCE = ("no Pallas kernel: the reference's jitted lax.fori_loop "
 #: what the early-walk kernel replaces: no Pallas kernel
 EARLY_SOURCE = ("no Pallas kernel: the reference's jitted lax.while_loop "
                 "walk, src/repro/core/search.py:327 _search_early_core")
+#: what the filter backbones' kernels replace: no Pallas kernel
+CNN_SOURCE = ("no Pallas kernel: the reference's XLA convolutions, "
+              "src/repro/core/filters.py:176 apply_cnn")
+RNN_SOURCE = ("no Pallas kernel: the reference's lax.scan LSTM layers, "
+              "src/repro/core/filters.py:233 apply_rnn (:215 _lstm_layer)")
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
     # the limits are a few times the f32 reading, below what a TF32 run of
@@ -230,6 +253,15 @@ KERNELS = {
                   "ids equal except at near-ties, where the kernel's row "
                   "lies within the limit of the plain version's at that "
                   "rank"),
+    "filter_cnn": ("src/repro_torch/csrc/filter_cnn.cu", CNN_SOURCE,
+                   (1e-4, 1e-5), "f32 sums over K x C inputs and the "
+                   "positions in another order"),
+    # relative to max|plain| alone: 1e-4 + 1e-5·max|plain| would accept a
+    # TF32 run of the plain version (4.8e-5 at the calibration call on an
+    # H100, the kernel 9.5e-7)
+    "filter_rnn": ("src/repro_torch/csrc/filter_rnn.cu", RNN_SOURCE,
+                   (0.0, 1e-6), "f32 gate sums in another order, carried "
+                   "through 2 x m dependent steps; relative to max|plain|"),
 }
 #: relu's derivative jumps at 0: a layer-1 sum within rounding of 0 may land
 #: on the other side in the plain version and move its column of the v_b1
@@ -331,6 +363,18 @@ DESIGN = {
                   "32): one warp a (query, leaf) pair, pairs leaf-major, "
                   "32 rows a step straight from the series, top-kk in "
                   "registers for kk <= 32, in the output row beyond", None),
+    "filter_cnn": ("a block per (filter, max(1, 128 / m) queries); conv 2 "
+                   "an implicit GEMM of 128 (query, position) rows x 128 "
+                   "channels over K shifts x 8-channel stages, double-"
+                   "buffered in shared memory, its A stages conv 1's "
+                   "output recomputed as staged; f32 FMA, 8 x 8 a thread; "
+                   "the epilogue's sums in a fixed order", None),
+    "filter_rnn": ("a block of 256 threads per (filter, 4 x 256 / min(h, "
+                   "256) queries) runs both layers' m steps, a thread one "
+                   "unit's 4 gates for 4 queries; wh1, wi2, wh2 in shared "
+                   "memory as [i][u][gate] where they fit (h = 64), else "
+                   "read through L2; h double-buffered, 2 barriers a step; "
+                   "f32 FMA", None),
 }
 #: the candidate pass's ``matmul`` form: its survivor pass runs on the
 #: split-TF32 wgmma instance (3 passes: float32 accuracy on the tensor
@@ -342,7 +386,8 @@ SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "mlp_stream_kernel", "box_lb_kernel", "replay_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
                  "leaf_topk_kernel", "leaf_topk_wgmma_kernel",
-                 "tc_rounding_kernel", "early_walk_kernel")
+                 "tc_rounding_kernel", "early_walk_kernel",
+                 "cnn_filter_kernel", "lstm_filter_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
@@ -357,6 +402,9 @@ SEARCH_KERNELS = ("box_lb", "fused_filter_mlp", "early_walk")
 GROUPED_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
 SUITE_KERNELS = ("filter_mlp", "fused_filter_mlp", "fused_filter_mlp_bf16",
                  "fused_filter_mlp_int8")
+#: the filter backbones of ``run_filter_types`` and their widths (the
+#: reference's defaults at m = 256: channels = m, ksize 3; hidden 64)
+FILTER_TYPES = {"cnn": {"channels": 256, "ksize": 3}, "rnn": {"hidden": 64}}
 #: the eager candidate pass's device kernels (the gather of the survivor
 #: slabs, the GEMV, the sort of each leaf's rows), which the kernel replaced
 EAGER_PASS_KERNELS = ("vectorized_gather_kernel", "gemv", "radixSortKVInPlace")
@@ -389,14 +437,17 @@ def card_line() -> str:
 def _counter_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.early_walk import kernel as walk_kernel
+    from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
     from repro_torch.kernels.replay import kernel as replay_kernel
     return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
             replay_kernel.LAUNCHES, train_kernel.LAUNCHES,
-            leaf_kernel.LAUNCHES, walk_kernel.LAUNCHES)
+            leaf_kernel.LAUNCHES, walk_kernel.LAUNCHES, cnn_kernel.LAUNCHES,
+            rnn_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -431,9 +482,9 @@ def _call_size(name: str, args, out) -> int:
 @contextlib.contextmanager
 def capture_largest_inputs(captured: dict):
     """Record, per kernel, the arguments of its largest call (by output
-    elements) while the main path runs, and for the fused filter entries
-    and ``box_lb`` also those of the call with the fewest queries (under
-    ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
+    elements) while the main path runs, and for the filter entries (the
+    fused MLP's, the CNN's, the LSTM's) and ``box_lb`` also those of the
+    call with the fewest queries (under ``<name>@min_q``); for ``box_lb`` also each distinct shape's calls
     (count and last arguments, under ``box_lb@shapes``); for the replay
     the largest call made by calibration apart (``replay@calibration``,
     the calls inside ``conformal.simulate_search``); for the candidate pass
@@ -448,7 +499,9 @@ def capture_largest_inputs(captured: dict):
     from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.early_walk import kernel as walk_kernel
+    from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
     from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
@@ -465,7 +518,9 @@ def capture_largest_inputs(captured: dict):
                 else "replay"),
                (leaf_kernel, "leaf_topk_cuda",
                 lambda a: "leaf_topk" if a[11] else "leaf_topk@probe"),
-               (walk_kernel, "early_walk_cuda", lambda a: "early_walk@calls")]
+               (walk_kernel, "early_walk_cuda", lambda a: "early_walk@calls"),
+               (cnn_kernel, "cnn_filter_cuda", lambda a: "filter_cnn"),
+               (rnn_kernel, "lstm_filter_cuda", lambda a: "filter_rnn")]
     saved = [(conformal, "simulate_search", conformal.simulate_search)]
 
     def simulate_search(*args, _fn=conformal.simulate_search, **kw):
@@ -487,7 +542,8 @@ def capture_largest_inputs(captured: dict):
             size = _call_size(name, args, out)
             if size > captured.get(name, (0, None))[0]:
                 captured[name] = (size, args)
-            if name.startswith("fused_filter_mlp") or name == "box_lb":
+            if name.startswith("fused_filter_mlp") or name in (
+                    "box_lb", "filter_cnn", "filter_rnn"):
                 n_q = args[0].shape[0]
                 if n_q < captured.get(f"{name}@min_q", (math.inf, None))[0]:
                     captured[f"{name}@min_q"] = (n_q, args)
@@ -1089,6 +1145,112 @@ def run_simulators(lfi, series: np.ndarray, queries: np.ndarray, *,
         f"bsf; phase wall {wall:.1f} s")
     return {"summary": out, "walk_searched": float(walked.mean()),
             "wall_s": wall}
+
+
+def run_filter_types(lfi, queries: np.ndarray, *, n_search: int = 64,
+                     n_early: int = 8, widths: dict | None = None,
+                     device: str = "cuda",
+                     captured: dict | None = None) -> dict:
+    """The paper's CNN and LSTM filter backbones (``FILTER_TYPES``, or
+    ``widths``) on the index's leaves: parameters from ``filters.INIT`` (a
+    generator on the device seeded 0; y_mean and y_std copied from the MLP
+    stack), the tuners refit on the calibration split as
+    ``requantize_leafi`` refits them, then the first ``n_search`` queries
+    through ``LeaFiIndex.search`` at exact and 0.99, k = 1 and 5, and
+    ``search_early`` on ``n_early`` of them at k = 5, 0.99.  Asserts finite
+    results of the expected shapes, exact == brute force for the
+    ``n_early`` queries and (on the card) one launch of the backbone's
+    kernel a prediction call (calibration, each filtered batch, each
+    ``search_early`` call) and none of the fused MLP kernel.  Prints
+    recall@1 at 0.99 on the calibration split beside the tuner's knots.
+    Returns the launches summed over the backbones."""
+    import dataclasses
+    import torch
+    from repro_torch.core import conformal, filters, search
+    idx = lfi.index
+    on_card = torch.device(device).type == "cuda"
+    widths = FILTER_TYPES if widths is None else widths
+    q = np.asarray(queries[:n_search], np.float32)
+    captured = {} if captured is None else captured
+    total: dict = {}
+    out = {}
+    for ftype, kw in widths.items():
+        kname = f"filter_{ftype}"
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = filters.INIT[ftype](len(lfi.leaf_ids), idx.length, **kw,
+                                     generator=gen, device=device)
+        for stat in ("y_mean", "y_std"):
+            params[stat] = lfi.filter_params[stat].clone()
+        _zero_counters()
+        with capture_largest_inputs(captured):
+            _sync(device)
+            t0 = time.perf_counter()
+            d_pred = search.predictions_for_all_leaves(
+                idx, params, lfi.leaf_ids, lfi.calib.queries, None,
+                filter_type=ftype)
+            tuner, _ = conformal.fit_autotuners(
+                lfi.calib.d_lb, d_pred, lfi.calib.d_L, lfi.leaf_ids)
+            _sync(device)
+            t_fit = time.perf_counter() - t0
+            lft = dataclasses.replace(
+                lfi, filter_params=params, tuner=tuner,
+                config=dataclasses.replace(lfi.config, filter_type=ftype))
+            results = {}
+            for k in (1, 5):
+                for name, target in (("exact", None), ("0.99", 0.99)):
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    r = lft.search(q, k=k, quality_target=target,
+                                   device=device)
+                    _sync(device)
+                    results[(k, name)] = (r, time.perf_counter() - t0)
+            early, walls = [], []
+            for i in range(n_early):
+                _sync(device)
+                t0 = time.perf_counter()
+                early.append(search.search_early(
+                    idx, q[i], k=5, quality_target=0.99,
+                    filter_params=params, leaf_ids=lft.leaf_ids,
+                    tuner=tuner, filter_type=ftype, device=device))
+                _sync(device)
+                walls.append(time.perf_counter() - t0)
+        launches = _launch_counters()
+        label = f"filter type {ftype} ({json.dumps(kw)})"
+        log(f"{label}: {len(lfi.leaf_ids)} filters, predictions on the "
+            f"{len(lfi.calib.queries)} calibration queries and tuner fit "
+            f"{t_fit:.2f} s")
+        for (k, name), (r, wall) in results.items():
+            assert r.dists.shape == (len(q), k), r.dists.shape
+            assert np.isfinite(r.dists).all(), f"non-finite dists {k} {name}"
+            log(_search_line(f"{label} k={k} target={name:5s}", r,
+                             results[(k, "exact")][0], wall, len(q)))
+        er = _stack_results(early, idx.n_leaves)
+        exact5 = results[(5, "exact")][0]
+        assert er.dists.shape == (n_early, 5) and np.isfinite(er.dists).all()
+        log(f"{label} search_early k=5 target=0.99: per query wall median "
+            f"{np.median(walls) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(walls, 90) * 1e3:.2f} ms; searched="
+            f"{er.searched.mean():.1f}/{er.n_leaves} pruned_lb="
+            f"{er.pruned_lb.mean():.1f} pruned_filter="
+            f"{er.pruned_filter.mean():.1f} pruning="
+            f"{er.pruning_ratio.mean():.4f} recall="
+            f"{_recall(er.ids, exact5.ids[:n_early]):.4f}")
+        _brute_force_check(lft, q, [exact5], n_early, f"{label} ")
+        calls = 1 + 2 + n_early       # calibration, 2 filtered, the walks
+        log(f"{label}: launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}) + f"; {kname} "
+            f"expected {calls} (one a prediction call)")
+        if on_card:
+            assert launches[kname] == calls, (launches[kname], calls)
+            assert launches["fused_filter_mlp"] == 0, launches
+        out[ftype] = {"results": results, "early": er,
+                      "calib_recall": _calib_recall_line(f"{label} ", lft,
+                                                         device)}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    captured.pop("early_walk@calls", None)   # run_early keeps its own
+    out["launches"] = total
+    return out
 
 
 def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
@@ -1903,6 +2065,13 @@ def run_datasets(*, n: int = 200_000, n_queries: int = 64,
     return out
 
 
+def _reps(bound_ms: float, budget_ms: float = 200.0) -> int:
+    """Timed calls for a kernel whose bound is ``bound_ms``: 20, fewer
+    where 20 would pass ``budget_ms`` of bound (the CNN and LSTM filters'
+    calibration call takes ~1 s; at least one)."""
+    return max(1, min(20, int(budget_ms / max(bound_ms, 1e-9))))
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     import torch
     fn()
@@ -1977,6 +2146,8 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         return _leaf_topk_bound(args, passes=passes)
     elif name in ("train_forward", "train_backward_sgd"):
         return _train_bound(name, args, passes)
+    elif name in ("filter_cnn", "filter_rnn"):
+        flops, nbytes = _backbone_work(name, args)
     elif name == "filter_mlp":           # raw z
         q, w1 = args[0], args[1]
         Q = q.shape[0]
@@ -1996,6 +2167,27 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
     t_bytes = nbytes / roofline.H100.hbm_bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _backbone_work(name: str, args) -> tuple:
+    """(operations, bytes) of one CNN or LSTM filter call.  CNN: conv 1
+    and conv 2's multiply-adds (2 m K C and 2 m K C^2 a pair), the head's
+    2 m C + 2 C; LSTM: a step's 2 x 4h for the input and 3 x 2 h x 4h for
+    the recurrences, m steps, the head's 2h (the cells' nonlinearities are
+    not counted).  Bytes: the queries and every parameter read once, the
+    (F, Q) output written once."""
+    q = args[0]
+    Q, m = q.shape
+    if name == "filter_cnn":
+        F, K, _, C = args[1].shape
+        flops = F * Q * (2 * m * K * C + 2 * m * K * C * C + 2 * m * C
+                         + 2 * C)
+        n_params = F * (K * C + K * C * C + C + 3)
+    else:
+        F, h = args[5].shape
+        flops = F * Q * (m * (2 * 4 * h + 3 * 2 * h * 4 * h) + 2 * h)
+        n_params = F * (4 * h + 3 * h * 4 * h + h + 3)
+    return flops, 4 * (Q * m + n_params + F * Q)
 
 
 def _train_bound(name: str, args, passes: float | None) -> tuple:
@@ -2205,7 +2397,11 @@ def _kernel_tables():
     from repro_torch.kernels.box_lb import ref as box_ref
     from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.early_walk import ref as walk_ref
+    from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
+    from repro_torch.kernels.filter_cnn import ref as cnn_ref
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
+    from repro_torch.kernels.filter_rnn import ref as rnn_ref
     from repro_torch.kernels.filter_train import kernel as train_kernel
     from repro_torch.kernels.filter_train import ref as train_ref
     from repro_torch.kernels.l2_scan import kernel as l2_kernel
@@ -2226,7 +2422,9 @@ def _kernel_tables():
                  "train_forward": train_kernel.train_forward_cuda,
                  "train_backward_sgd": train_kernel.train_backward_sgd_cuda,
                  "leaf_topk": leaf_kernel.leaf_topk_cuda,
-                 "early_walk": walk_kernel.early_walk_cuda}
+                 "early_walk": walk_kernel.early_walk_cuda,
+                 "filter_cnn": cnn_kernel.cnn_filter_cuda,
+                 "filter_rnn": rnn_kernel.lstm_filter_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
@@ -2241,7 +2439,9 @@ def _kernel_tables():
                     lambda *a: train_ref.train_backward_sgd(*a[:-2]),
                 "leaf_topk": leaf_ref.leaf_topk,
                 # the kernel's call ends with max_leaf, which sizes its items
-                "early_walk": lambda *a: walk_ref.early_walk(*a[:-1])}
+                "early_walk": lambda *a: walk_ref.early_walk(*a[:-1]),
+                "filter_cnn": cnn_ref.cnn_filter,
+                "filter_rnn": rnn_ref.lstm_filter}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
 
@@ -2514,14 +2714,16 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
             f"{'would accept' if all(map(_within, tf32)) else 'rejects'}")
     # the training kernels' update runs in place: timed on a copy
     args = _scratch(name, args)
-    ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a))
-    graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a))
+    bound_ms, bound_by = _bound(name, args)
+    reps = _reps(bound_ms)
+    ms = _time_ms(lambda f=kernel_fn[name], a=args: f(*a), reps=reps)
+    graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a), reps=reps)
     # the plain replay is a host loop of ~20 launches a position, the plain
     # candidate pass a bucket loop of gathers and sorts (~0.2-0.5 s a batch),
     # the plain walk ~25 launches and a sync a searched leaf
     plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a),
-                        reps=2 if name in ("replay", "leaf_topk",
-                                           "early_walk") else 20)
+                        reps=min(reps, 2 if name in (
+                            "replay", "leaf_topk", "early_walk") else 20))
     lib = library_fn.get(name)
     library_ms = (None if lib is None
                   else _time_ms(lambda f=lib, a=args: f(*a)))
@@ -2533,7 +2735,6 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
         passes = LEAF_TOPK_SPLIT_PASSES
         if _leaf_topk_instance(args) == "warp":
             whose = "a split-TF32 design's"
-    bound_ms, bound_by = _bound(name, args)
     split_ms, split_by, tf32_ms, tf32_by = (
         (None,) * 4 if passes is None
         else _bound(name, args, passes) + _bound(name, args, 1))
@@ -2548,7 +2749,8 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
         tc += (f", every pair's rows from HBM {pair_ms:.4f} ms by "
                f"{pair_by}")
     log(f"kernel {label} [{design}]: {ms:.4f} ms through the wrapper, "
-        f"{graph_ms:.4f} ms replayed from a CUDA graph (no host-side "
+        f"{graph_ms:.4f} ms replayed from a CUDA graph ({reps} calls; no "
+        "host-side "
         f"enqueue), plain {plain_ms:.4f} ms, library {library}, "
         f"f32 CUDA-core bound {bound_ms:.4f} ms by {bound_by}{tc} "
         f"(peaks at 700 W; card limit {power})")
@@ -2942,6 +3144,59 @@ def ragged_calls(device: str = "cuda") -> dict:
     return calls
 
 
+#: (F, Q, m, channels, ksize) of the CNN kernel's ragged held calls: m =
+#: 96 and 33 (a block of 1 and of 3 queries, partial row tiles), channels
+#: 64 and 100 (a partial channel tile; 100 % 8 != 0, a partial stage; and
+#: C % 4 != 0 at 98: c2 without 16-byte loads), ksize 1, 2 (even: one more
+#: pad after than before), 3 and 5
+RAGGED_CNN = ((1, 1, 96, 64, 3), (3, 33, 33, 100, 2), (3, 180, 96, 100, 5),
+              (1, 33, 33, 64, 1), (3, 1, 33, 98, 5), (1, 180, 96, 64, 2))
+#: (F, Q, m, hidden) of the LSTM kernel's: hidden 32 and 64 (the weights in
+#: shared memory), 100 (read through L2; a partial last thread group) and
+#: 2500 (the state too large for shared memory: kept in memory, a thread
+#: ten units), m = 96 and 33
+RAGGED_RNN = ((1, 1, 96, 32), (3, 33, 33, 64), (3, 180, 96, 100),
+              (1, 180, 33, 64), (3, 1, 33, 100), (1, 33, 96, 32),
+              (1, 5, 4, 2500))
+
+
+def filter_type_calls(device: str = "cuda") -> dict:
+    """The CNN and LSTM kernels' ragged calls (numpy seed 2; weights at the
+    reference's init scales, random biases and target statistics)."""
+    import torch
+    rng = np.random.default_rng(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=device)
+
+    def head(F):
+        return (randn(F), randn(F) + 10.0,
+                torch.as_tensor(rng.uniform(0.5, 2.0, F).astype(np.float32),
+                                device=device))
+    calls = {"filter_cnn": [], "filter_rnn": []}
+    for F, Q, m, C, K in RAGGED_CNN:
+        calls["filter_cnn"].append((
+            randn(Q, m), randn(F, K, 1, C, scale=math.sqrt(2 / K)),
+            randn(F, K, C, C, scale=math.sqrt(2 / (K * C))),
+            randn(F, C, scale=math.sqrt(1 / C))) + head(F))
+    for F, Q, m, h in RAGGED_RNN:
+        s = math.sqrt(1 / h)
+        calls["filter_rnn"].append((
+            randn(Q, m), randn(F, 1, 4 * h, scale=s),
+            randn(F, h, 4 * h, scale=s), randn(F, h, 4 * h, scale=s),
+            randn(F, h, 4 * h, scale=s), randn(F, h, scale=s)) + head(F))
+    return calls
+
+
+def _rnn_layout(args) -> str:
+    """The LSTM kernel's instance for a call: where its weights and state
+    live, queries a block, shared memory, registers and scratch."""
+    from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
+    F, h = args[5].shape
+    return json.dumps(rnn_kernel.layout(F, args[0].shape[0], h))
+
+
 def _q_label(name: str, n_q: int) -> str:
     """A call's label by its query count; the fused entries' also names the
     design their Q takes."""
@@ -2992,7 +3247,7 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.leaf_topk import ref as leaf_ref
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls(),
-              "early_walk": early_walk_calls()}
+              "early_walk": early_walk_calls(), **filter_type_calls()}
     ragged["leaf_topk"] = [_leaf_topk_fresh(c, impl)
                            for c in leaf_topk_calls()
                            + staged_leaf_topk_calls()
@@ -3072,12 +3327,17 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                                     "leaf_topk (the probe's largest call)",
                                     power)
                 row["probe_call"] = {k: probe[k] for k in keep}
+        if name == "filter_rnn":
+            row["layout"] = _rnn_layout(args)
         if held:
             row["held_calls"] = []
             for call in held:
                 label = name
-                if name in mlp_kernel.LAUNCHES or name == "box_lb":
+                if name in mlp_kernel.LAUNCHES or name in (
+                        "box_lb", "filter_cnn", "filter_rnn"):
                     label = _q_label(name, call[0].shape[0])
+                if name == "filter_rnn":
+                    label += f" {_rnn_layout(call)}"
                 row["held_calls"].append(_hold(name, call, f"{label}, held"))
         rows.append(row)
     return rows
@@ -3224,7 +3484,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
                          "filter_train", "leaf_topk", "tc_rounding",
-                         "early_walk"])
+                         "early_walk", "filter_cnn", "filter_rnn"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
     from repro_torch.kernels.filter_train import kernel as train_kernel
@@ -3263,6 +3523,9 @@ def main() -> int:
           e2e["queries"], device="cuda")
     phase("simulators", run_simulators, e2e["lfi"], series, e2e["queries"],
           device="cuda")
+    paths.append(phase("filter types", run_filter_types, e2e["lfi"],
+                       e2e["queries"], device="cuda",
+                       captured=captured)["launches"])
     paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
                        e2e["targets"], e2e["results"], device="cuda",
                        captured=captured)["launches"])

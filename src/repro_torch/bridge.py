@@ -7,7 +7,9 @@ split — and returns the port's :class:`~repro_torch.core.build.LeaFiIndex`
 on a device.  It imports nothing of the reference: the caller turns the
 reference's arrays into numpy (``np.asarray``) first.  Filter weights keep
 their payload: float32, int8, or bfloat16 (a numpy extension dtype named
-``"bfloat16"``, carried bit for bit).
+``"bfloat16"``, carried bit for bit).  CNN (``c1``, ``c2``, ``w``, …) and
+LSTM (``wi1``, ``wh1``, ``wi2``, ``wh2``, ``w``, …) stacks are carried in
+float32, and the config's ``filter_type`` follows their keys.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from .core.build import CalibSplit, LeaFiConfig, LeaFiIndex
 from .core.conformal import AutoTuner
-from .core.filters import mlp_weight_dtype
+from .core.filters import filter_type_of, mlp_weight_dtype
 from .core.flat_index import FlatIndex
 from .kernels.common import Device, resolve_device
 
@@ -46,10 +48,11 @@ def leafi_from_arrays(index: Mapping, filter_params: Optional[Mapping],
     ``max_leaf_size``, ``n_series``, ``length`` and ``payload`` (a dict of
     arrays); filter_params: ``w1``, ``b1``, ``w2``, ``b2``, ``y_mean``,
     ``y_std`` and, for int8 weights, ``w1_scale``/``w2_scale`` (or None for
-    an index without filters); tuner: ``knots_q``, ``knots_o``, ``slopes``,
-    ``max_offset`` (or None); calib: ``queries``, ``d_lb``, ``d_L`` (or
-    None).  The config's backbone, word length or segment count, and
-    weight payload follow the arrays.
+    an index without filters), or a CNN or LSTM stack (``filters.INIT``'s
+    keys); tuner: ``knots_q``, ``knots_o``, ``slopes``, ``max_offset`` (or
+    None); calib: ``queries``, ``d_lb``, ``d_L`` (or None).  The config's
+    backbone, word length or segment count, filter type and weight payload
+    follow the arrays.
     """
     dev = resolve_device(device)
     kind = str(index["kind"])
@@ -71,7 +74,11 @@ def leafi_from_arrays(index: Mapping, filter_params: Optional[Mapping],
     params: Optional[Dict[str, torch.Tensor]] = None
     if filter_params is not None:
         params = {k: _tensor(v, dev) for k, v in filter_params.items()}
-        config.weight_dtype = mlp_weight_dtype(params)
+        config.filter_type = filter_type_of(params)
+        if config.filter_type == "mlp":
+            config.weight_dtype = mlp_weight_dtype(params)
+        else:
+            params = {k: v.float() for k, v in params.items()}
     at = None
     if tuner is not None:
         at = AutoTuner(knots_q=np.asarray(tuner["knots_q"]),

@@ -1,6 +1,7 @@
 """LeaFi-enhanced index building, paper Alg. 1 (port of
 ``repro.core.build``: DSTree and iSAX backbones, MLP filters with float32,
-bfloat16 or int8 weight payloads).
+bfloat16 or int8 weight payloads; an index's search also takes CNN or LSTM
+filters trained elsewhere, ``LeaFiConfig.filter_type``).
 
     1. build the backbone tree on the host, move it to the card  [tree.py]
     2. select leaves for filter insertion                        [selection.py]
@@ -46,6 +47,9 @@ class LeaFiConfig:
     # weight payload for inference: "float32" | "bfloat16" | "int8" (the
     # fused filter kernel's three variants)
     weight_dtype: str = "float32"
+    # filter backbone search applies: "mlp" | "cnn" | "rnn"; the build
+    # trains MLPs only
+    filter_type: str = "mlp"
     train: filter_training.TrainConfig = dataclasses.field(
         default_factory=filter_training.TrainConfig)
     seed: int = 0
@@ -74,7 +78,9 @@ class LeaFiIndex:
                use_filters: bool = True, device: Device = None,
                **kw) -> search.SearchResult:
         """quality_target=None or use_filters=False ⇒ exact search.
-        ``device=None`` means the card; the index must live there."""
+        ``device=None`` means the card; the index must live there.  The
+        filter type is the config's unless ``kw`` names one."""
+        kw.setdefault("filter_type", self.config.filter_type)
         return search.search_batched(
             self.index, queries, k=k, filter_params=self.filter_params,
             leaf_ids=self.leaf_ids, tuner=self.tuner,
@@ -98,6 +104,11 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
     """Alg. 1: LeaFi-enhanced index building, on the card unless
     ``device="cpu"``.  Random draws come from a generator seeded with
     ``config.seed`` on the build device."""
+    if config.filter_type != "mlp":
+        raise NotImplementedError(
+            "build-side filter training is MLP-only (the paper's default); "
+            "the CNN and LSTM backbones are reachable from search "
+            "(filters.APPLY) with parameters trained elsewhere")
     dev = resolve_device(device)
     if config.backbone not in ("dstree", "isax"):
         raise ValueError(f"unknown backbone {config.backbone!r}")
@@ -190,7 +201,8 @@ def requantize_leafi(lfi: LeaFiIndex, weight_dtype: str, *,
                          "it with build_leafi to requantize it")
     params = filters.quantize_mlp(lfi.filter_params, weight_dtype)
     d_pred = search.predictions_for_all_leaves(
-        lfi.index, params, lfi.leaf_ids, lfi.calib.queries, offsets=None)
+        lfi.index, params, lfi.leaf_ids, lfi.calib.queries, offsets=None,
+        filter_type=lfi.config.filter_type)
     tuner, _ = conformal.fit_autotuners(lfi.calib.d_lb, d_pred,
                                         lfi.calib.d_L, lfi.leaf_ids)
     return dataclasses.replace(lfi, filter_params=params, tuner=tuner,

@@ -1,21 +1,28 @@
-"""Learned MLP filters (port of the MLP half of ``repro.core.filters``).
+"""Learned filters (port of ``repro.core.filters``): the MLP, and the 2-layer
+CNN and 2-block LSTM of the paper's filter-model ablation (Table 1, Fig.
+12).
 
 Parameters are stacked on a leading filter axis F, so every filter trains
 and infers in one batched call.  Predictions are de-standardized with
-per-filter target statistics.  The weight matrices of a trained stack can
-be compressed to bfloat16 or int8 for inference; the fused filter kernel has
-a variant for each payload.  The CNN/RNN ablation filters are ROADMAP
-queue A.
+per-filter target statistics.  The weight matrices of a trained MLP stack
+can be compressed to bfloat16 or int8 for inference; the fused filter
+kernel has a variant for each payload.  The CNN and LSTM keep the
+reference's layouts (c1/c2 in WIO, gates in i, f, g, o order) and float32
+weights; each runs as one launch of its own kernel on the card
+(``kernels/filter_cnn``, ``kernels/filter_rnn``).  :data:`APPLY` and
+:data:`INIT` map a filter type to its functions.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
+from ..kernels.filter_cnn import kernel as cnn_kernel
 from ..kernels.filter_mlp import ops as mlp_ops
 from ..kernels.filter_mlp import ref as mlp_ref
+from ..kernels.filter_rnn import kernel as rnn_kernel
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,3 +111,94 @@ def mlp_param_bytes(length: int, hidden: Optional[int] = None,
     n_f32 = hidden + 1 + 2                         # b1 + b2 + y_mean/y_std
     n_scales = 2 if weight_dtype == "int8" else 0
     return wb * n_weight + 4 * (n_f32 + n_scales)
+
+
+# ---------------------------------------------------------------------------
+# CNN / LSTM variants (Table 1 & Fig. 12 ablation)
+# ---------------------------------------------------------------------------
+
+
+def _randn(shape, scale: float, generator: torch.Generator,
+           device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=device) * scale
+
+
+def _stats(n_filters: int, device) -> Params:
+    return {"b": torch.zeros((n_filters,), device=device),
+            "y_mean": torch.zeros((n_filters,), device=device),
+            "y_std": torch.ones((n_filters,), device=device)}
+
+
+def init_cnn(n_filters: int, length: int, channels: Optional[int] = None,
+             ksize: int = 3, *, generator: torch.Generator,
+             device) -> Params:
+    """He-normal convolutions c1 (F, K, 1, C) and c2 (F, K, C, C) in the
+    reference's WIO layout, a head w (F, C), zero bias, identity target
+    statistics; C = ``channels`` or the series length."""
+    channels = channels or length
+    return {
+        "c1": _randn((n_filters, ksize, 1, channels),
+                     math.sqrt(2.0 / ksize), generator, device),
+        "c2": _randn((n_filters, ksize, channels, channels),
+                     math.sqrt(2.0 / (ksize * channels)), generator, device),
+        "w": _randn((n_filters, channels), math.sqrt(1.0 / channels),
+                    generator, device),
+        **_stats(n_filters, device),
+    }
+
+
+def apply_cnn(params: Params, queries: torch.Tensor) -> torch.Tensor:
+    """2-conv-layer filter: (Q, m) → (F, Q) de-standardized predictions:
+    "SAME" conv → relu → "SAME" conv → relu → mean over positions → · w +
+    b; one launch of the CNN kernel on the card."""
+    return cnn_kernel.cnn_filter(queries, params["c1"], params["c2"],
+                                 params["w"], params["b"], params["y_mean"],
+                                 params["y_std"])
+
+
+def init_rnn(n_filters: int, length: int, hidden: int = 64, *,
+             generator: torch.Generator, device) -> Params:
+    """Two bias-free LSTM layers (wi1 (F, 1, 4h); wh1, wi2, wh2 (F, h, 4h))
+    and a head w (F, h), all normal with scale √(1/h); zero bias, identity
+    target statistics.  ``length`` is accepted for :data:`INIT`'s one
+    signature."""
+    del length
+    s = math.sqrt(1.0 / hidden)
+    shapes = {"wi1": (n_filters, 1, 4 * hidden),
+              "wh1": (n_filters, hidden, 4 * hidden),
+              "wi2": (n_filters, hidden, 4 * hidden),
+              "wh2": (n_filters, hidden, 4 * hidden),
+              "w": (n_filters, hidden)}
+    out = {k: _randn(shape, s, generator, device)
+           for k, shape in shapes.items()}
+    return {**out, **_stats(n_filters, device)}
+
+
+def apply_rnn(params: Params, queries: torch.Tensor) -> torch.Tensor:
+    """2-LSTM-block filter: (Q, m) → (F, Q) de-standardized predictions
+    from layer 2's last hidden state; one launch of the LSTM kernel on the
+    card."""
+    return rnn_kernel.lstm_filter(queries, params["wi1"], params["wh1"],
+                                  params["wi2"], params["wh2"], params["w"],
+                                  params["b"], params["y_mean"],
+                                  params["y_std"])
+
+
+def filter_type_of(params: Params) -> str:
+    """The backbone a parameter dict holds: "cnn" (``c1``), "rnn"
+    (``wi1``) or "mlp"."""
+    if "c1" in params:
+        return "cnn"
+    if "wi1" in params:
+        return "rnn"
+    return "mlp"
+
+
+#: de-standardized (F, Q) predictions of each filter type, without offsets
+APPLY: Dict[str, Callable[[Params, torch.Tensor], torch.Tensor]] = {
+    "mlp": lambda params, queries: apply_mlp_offset(params, queries),
+    "cnn": apply_cnn,
+    "rnn": apply_rnn,
+}
+#: initial parameters of each filter type
+INIT = {"mlp": init_mlp, "cnn": init_cnn, "rnn": init_rnn}

@@ -94,12 +94,15 @@ def predictions_for_all_leaves(index: FlatIndex,
                                filter_params: Optional[Dict[str,
                                                             torch.Tensor]],
                                leaf_ids: np.ndarray, queries: torch.Tensor,
-                               offsets: Optional[np.ndarray]) -> torch.Tensor:
+                               offsets: Optional[np.ndarray],
+                               filter_type: str = "mlp") -> torch.Tensor:
     """(Q, L) conformal-adjusted filter lower bounds; −inf ⇒ never prunes.
 
-    ``offsets`` is one (F,) vector shared by the batch, which goes into the
-    fused kernel's epilogue, or (Q, F) per-query rows, subtracted from the
-    kernel's unadjusted output.
+    ``filter_type`` selects the backbone through :data:`filters.APPLY`.
+    ``offsets`` is one (F,) vector shared by the batch or (Q, F) per-query
+    rows.  The MLP takes shared offsets into the fused kernel's epilogue;
+    per-query rows, and any offsets of a CNN or LSTM, are subtracted from
+    the backbone's unadjusted output.
     """
     L = index.n_leaves
     Q = queries.shape[0]
@@ -108,10 +111,12 @@ def predictions_for_all_leaves(index: FlatIndex,
         return torch.full((Q, L), -_INF, device=dev)
     off = (None if offsets is None
            else torch.as_tensor(np.asarray(offsets, np.float32), device=dev))
-    if off is None or off.dim() == 1:
+    if filter_type == "mlp" and (off is None or off.dim() == 1):
         preds = filters.apply_mlp_offset(filter_params, queries, off)  # (F, Q)
     else:
-        preds = filters.apply_mlp_offset(filter_params, queries) - off.T
+        preds = filters.APPLY[filter_type](filter_params, queries)   # (F, Q)
+        if off is not None:
+            preds = preds - (off.T if off.dim() == 2 else off[:, None])
     full = torch.full((L, Q), -_INF, device=dev)
     full[torch.as_tensor(np.asarray(leaf_ids), device=dev)] = preds
     return full.T
@@ -119,7 +124,8 @@ def predictions_for_all_leaves(index: FlatIndex,
 
 def _bounds_and_predictions(index: FlatIndex, q: torch.Tensor,
                             filter_params, leaf_ids, tuner, quality_target,
-                            use_filters: bool, dev: torch.device):
+                            use_filters: bool, dev: torch.device,
+                            filter_type: str):
     """(Q, L) lower bounds and conformal-adjusted filter predictions of the
     queries ``q`` on ``dev`` (−inf predictions when the filters are off)."""
     if index.device != dev:
@@ -132,7 +138,7 @@ def _bounds_and_predictions(index: FlatIndex, q: torch.Tensor,
     if tuner is not None and quality_target is not None:
         offsets = tuner.offsets(quality_target)        # (F,) or (Q, F)
     return d_lb, predictions_for_all_leaves(index, filter_params, leaf_ids,
-                                            q, offsets)
+                                            q, offsets, filter_type)
 
 
 def search_batched_async(index: FlatIndex, queries, *, k: int = 1,
@@ -140,7 +146,7 @@ def search_batched_async(index: FlatIndex, queries, *, k: int = 1,
                          leaf_ids: Optional[np.ndarray] = None,
                          tuner: Optional[conformal.AutoTuner] = None,
                          quality_target=None, use_filters: bool = True,
-                         strategy: str = "auto",
+                         filter_type: str = "mlp", strategy: str = "auto",
                          dist_impl: Optional[str] = None,
                          device: Device = None) -> PendingSearch:
     """Dispatch a batched LeaFi search; same arguments as
@@ -161,7 +167,7 @@ def search_batched_async(index: FlatIndex, queries, *, k: int = 1,
                 f"entries for {q.shape[0]} queries")
     d_lb, d_F = _bounds_and_predictions(index, q, filter_params, leaf_ids,
                                         tuner, quality_target, use_filters,
-                                        dev)
+                                        dev, filter_type)
     res = engine.run_cascade(
         index.series, index.leaf_start, index.leaf_size, q, d_lb, d_F,
         k=k, max_leaf=index.max_leaf_size, strategy=strategy,
@@ -179,12 +185,15 @@ def search_batched(index: FlatIndex, queries, *, k: int = 1,
                    filter_params=None, leaf_ids: Optional[np.ndarray] = None,
                    tuner: Optional[conformal.AutoTuner] = None,
                    quality_target=None, use_filters: bool = True,
-                   strategy: str = "auto", dist_impl: Optional[str] = None,
+                   filter_type: str = "mlp", strategy: str = "auto",
+                   dist_impl: Optional[str] = None,
                    device: Device = None) -> SearchResult:
     """Batched LeaFi search; exact when filters are disabled.
 
     ``quality_target`` is one target for the batch or an array of Q
-    per-query targets (lowered to (Q, F) offset rows).  ``strategy`` is
+    per-query targets (lowered to (Q, F) offset rows).  ``filter_type``
+    ("mlp", "cnn" or "rnn") names the backbone of ``filter_params``.
+    ``strategy`` is
     "compact" (the "auto" default) or "scan"; ``dist_impl`` selects the
     candidate pass (see :func:`engine.run_cascade`).  ``device=None`` means
     the card; the index must live there.
@@ -192,7 +201,8 @@ def search_batched(index: FlatIndex, queries, *, k: int = 1,
     return search_batched_async(
         index, queries, k=k, filter_params=filter_params, leaf_ids=leaf_ids,
         tuner=tuner, quality_target=quality_target, use_filters=use_filters,
-        strategy=strategy, dist_impl=dist_impl, device=device).result()
+        filter_type=filter_type, strategy=strategy, dist_impl=dist_impl,
+        device=device).result()
 
 
 def search_batched_grouped(index: FlatIndex, queries,
@@ -200,7 +210,8 @@ def search_batched_grouped(index: FlatIndex, queries,
                            **kw) -> SearchResult:
     """Per-query quality targets as homogeneous sub-batches: the batch is
     partitioned by unique target (``np.unique`` order), each group goes
-    through :func:`search_batched` with its scalar target, and the results
+    through :func:`search_batched` with its scalar target (``kw``, the
+    filter type among them, passed on), and the results
     are stitched back in request order.  The same semantics as passing the
     target array to ``search_batched``; prune decisions tied within an ulp
     of the bsf may differ between the two (the sub-batches run other
@@ -236,7 +247,7 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
                  filter_params=None, leaf_ids: Optional[np.ndarray] = None,
                  tuner: Optional[conformal.AutoTuner] = None,
                  quality_target: Optional[float] = None,
-                 use_filters: bool = True,
+                 use_filters: bool = True, filter_type: str = "mlp",
                  device: Device = None) -> SearchResult:
     """Single-query early-termination search (paper Alg. 2 as written).
 
@@ -249,7 +260,7 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
     lower row).  ``device=None`` means the card; the index must live there.
 
     On the card the bounds (``box_lb``), the predictions (the fused filter
-    kernel), the argsort and the walk (one ``early_walk`` launch) run with
+    kernel, or the CNN or LSTM kernel), the argsort and the walk (one ``early_walk`` launch) run with
     nothing copied to the host; the ids are mapped through ``index.order``
     there too, and the result comes back in one copy.  On the CPU the walk
     is the plain loop (``walk_ref.early_walk``), one leaf at a time.
@@ -259,7 +270,7 @@ def search_early(index: FlatIndex, query, *, k: int = 1,
                         device=dev).reshape(1, -1)
     d_lb, d_F = _bounds_and_predictions(index, q, filter_params, leaf_ids,
                                         tuner, quality_target, use_filters,
-                                        dev)
+                                        dev, filter_type)
     lb_row, dF_row = d_lb[0].contiguous(), d_F[0].contiguous()
     order = torch.argsort(lb_row, stable=True)
     args = (index.series, index.leaf_start, index.leaf_size, q[0], lb_row,

@@ -67,12 +67,14 @@ def sax_from_paa(paa_vals: torch.Tensor, card_bits: int) -> torch.Tensor:
     return torch.searchsorted(bps, paa_vals.contiguous()).to(torch.int32)
 
 
-def sax_symbol_edges(symbols: np.ndarray, card_bits: np.ndarray
-                     ) -> np.ndarray:
+def sax_symbol_edges(symbols: np.ndarray, card_bits: np.ndarray,
+                     max_bits: int = 8) -> np.ndarray:
     """Value-space boxes of SAX symbols at per-dimension cardinalities.
 
     symbols (..., l) at their own cardinality, card_bits (..., l) (0 ⇒ the
     whole axis) → (..., l, 2) float32 [lower, upper], ±inf at the extremes.
+    ``max_bits`` is accepted for the reference's signature; each symbol's
+    box depends on its own cardinality only.
     """
     symbols = np.asarray(symbols)
     card_bits = np.broadcast_to(np.asarray(card_bits), symbols.shape)

@@ -24,7 +24,7 @@ import torch
 from . import summaries
 from .flat_index import FlatIndex
 
-#: iSAX cardinality bits per dimension at the deepest promotion
+#: default iSAX cardinality bits per dimension at the deepest promotion
 MAX_CARD_BITS = 8
 
 
@@ -45,12 +45,18 @@ def _segment_stats(series: np.ndarray, n_segments: int) -> np.ndarray:
                                    n_segments).numpy()
 
 
+def _prepare(series: np.ndarray, znorm: bool) -> torch.Tensor:
+    """The collection as float32, z-normalized unless ``znorm`` is False."""
+    out = torch.from_numpy(np.ascontiguousarray(series, np.float32))
+    return summaries.znormalize(out) if znorm else out
+
+
 def build_dstree(series: np.ndarray, leaf_capacity: int = 256,
-                 n_segments: int = 8) -> FlatIndex:
-    """Z-normalize ``series`` (n, m) and split it into leaves of at most
-    ``leaf_capacity`` series (a degenerate split halves the node)."""
-    series = summaries.znormalize(torch.from_numpy(
-        np.ascontiguousarray(series, np.float32))).numpy()
+                 n_segments: int = 8, znorm: bool = True) -> FlatIndex:
+    """Split ``series`` (n, m), z-normalized unless ``znorm`` is False, into
+    leaves of at most ``leaf_capacity`` series (a degenerate split halves
+    the node)."""
+    series = _prepare(series, znorm).numpy()
     n, m = series.shape
     stats = _segment_stats(series, n_segments)                 # (n, s, 2)
 
@@ -88,20 +94,21 @@ def build_dstree(series: np.ndarray, leaf_capacity: int = 256,
 
 
 def build_isax(series: np.ndarray, leaf_capacity: int = 256,
-               word_len: int = 8) -> FlatIndex:
-    """Z-normalize ``series`` (n, m) and index its SAX words of ``word_len``
-    dimensions in a trie with leaves of at most ``leaf_capacity`` series,
-    unless ``MAX_CARD_BITS`` bits per dimension cannot separate them."""
-    series = summaries.znormalize(torch.from_numpy(
-        np.ascontiguousarray(series, np.float32)))
+               word_len: int = 8, max_card_bits: int = MAX_CARD_BITS,
+               znorm: bool = True) -> FlatIndex:
+    """Index the SAX words of ``word_len`` dimensions of ``series`` (n, m),
+    z-normalized unless ``znorm`` is False, in a trie with leaves of at most
+    ``leaf_capacity`` series, unless ``max_card_bits`` bits per dimension
+    cannot separate them."""
+    series = _prepare(series, znorm)
     paa = summaries.paa(series, word_len)                     # (n, l)
     series = series.numpy()
     # symbols at the maximum cardinality; a node's symbol at b bits is the
     # top b bits of the max-cardinality symbol (cardinality promotion)
-    sym_max = summaries.sax_from_paa(paa, MAX_CARD_BITS).numpy()
+    sym_max = summaries.sax_from_paa(paa, max_card_bits).numpy()
 
     # root children: one bit on every dimension; ids stay ascending
-    top = sym_max >> (MAX_CARD_BITS - 1)
+    top = sym_max >> (max_card_bits - 1)
     words, inverse = np.unique(top, axis=0, return_inverse=True)
     inverse = inverse.reshape(-1)
     by_word = np.argsort(inverse, kind="stable")
@@ -119,10 +126,10 @@ def build_isax(series: np.ndarray, leaf_capacity: int = 256,
         # separates the node's series
         split_dim, bit = -1, None
         for d in np.argsort(node.sax_bits, kind="stable"):
-            if node.sax_bits[d] >= MAX_CARD_BITS:
+            if node.sax_bits[d] >= max_card_bits:
                 continue
             b = node.sax_bits[d] + 1
-            bit = (sym_max[node.ids, d] >> (MAX_CARD_BITS - b)) & 1
+            bit = (sym_max[node.ids, d] >> (max_card_bits - b)) & 1
             if 0 < bit.sum() < len(bit):
                 split_dim = int(d)
                 break
@@ -133,7 +140,7 @@ def build_isax(series: np.ndarray, leaf_capacity: int = 256,
         node.children = []
         for side in (0, 1):
             ids = node.ids[bit == side]
-            word = (sym_max[ids[0]] >> (MAX_CARD_BITS - bits)).astype(
+            word = (sym_max[ids[0]] >> (max_card_bits - bits)).astype(
                 np.int32)
             child = _Node(ids=ids, sax_word=word, sax_bits=bits.copy())
             node.children.append(child)

@@ -167,7 +167,8 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "fused_filter_mlp_int8", "box_lb",
                                     "filter_mlp", "replay", "train_forward",
                                     "train_backward_sgd", "leaf_topk",
-                                    "early_walk"}
+                                    "early_walk", "filter_cnn",
+                                    "filter_rnn"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -265,7 +266,9 @@ def test_new_modules_are_checked():
                 "kernels/filter_train/ref.py", "data/series.py",
                 "kernels/leaf_topk/kernel.py", "kernels/leaf_topk/ref.py",
                 "kernels/early_walk/kernel.py", "kernels/early_walk/ref.py",
-                "core/baselines.py", "core/selection.py"):
+                "core/baselines.py", "core/selection.py",
+                "kernels/filter_cnn/kernel.py", "kernels/filter_cnn/ref.py",
+                "kernels/filter_rnn/kernel.py", "kernels/filter_rnn/ref.py"):
         assert mod in names
 
 

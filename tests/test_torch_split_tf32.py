@@ -83,12 +83,17 @@ def test_chip_limits_are_unchanged():
     absolute term (the parameters are held bitwise to their own update).
     The candidate pass takes the first port's float32 limit too.  The early
     walk sums each row in a fixed order its plain version repeats, then
-    compares and selects: bitwise as well."""
+    compares and selects: bitwise as well.  The CNN filter kernel takes
+    the first port's float32 limit; the LSTM's is relative to its output
+    alone, 1e-6 x max|plain|, because the float32 limit would accept a
+    TF32 run of its plain version."""
     limits = _chip_limits()
     assert set(limits) == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
                            "box_lb", "filter_mlp", "replay", "train_forward",
-                           "train_backward_sgd", "leaf_topk", "early_walk"}
+                           "train_backward_sgd", "leaf_topk", "early_walk",
+                           "filter_cnn", "filter_rnn"}
+    assert limits.pop("filter_rnn") == (0.0, 1e-6)
     assert limits.pop("replay") == (0.0, 0.0)
     assert limits.pop("early_walk") == (0.0, 0.0)
     assert limits.pop("train_forward") == (0.0, 2e-5)
