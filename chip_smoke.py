@@ -63,8 +63,19 @@
    and LR, each one's recall, searched leaves and pruning beside
    ``search_early``'s searched leaves at k = 1, 0.99; asserts that exact
    and LR recall 1 and that the oracle filter (d_F = d_L) searches no more
-   leaves than exact, query by query, with the same final bsf.  Then the
-   filter types (``run_filter_types``) on the same DSTree index: for the
+   leaves than exact, query by query, with the same final bsf.  Then DTW
+   (``run_dtw``, ``repro_torch.core.dtw``) on the same index's leaf-sorted
+   series at r = 8 for 8 of its queries: every series' Keogh envelope and
+   each leaf's (min L, max U over its members, by contiguous segments), the
+   node-level LB_Keogh (8 x L) and the point-wise LB_Keogh (8 x 1,000,000)
+   through ``box_lb``, and the DTW of all 8,000,000 pairs in one launch of
+   ``csrc/dtw.cu`` (asserted from the counters: one ``dtw`` launch, two
+   ``box_lb``); the DTW held bitwise against its plain version on every
+   pair; asserts lb_keogh <= dtw <= euclidean on every pair and the node
+   bound <= the least member DTW on every (query, leaf), each within the
+   reference tests' 1e-4; prints each query's DTW 1-NN beside its
+   Euclidean 1-NN and the share of leaves LB_Keogh alone would prune.  Then
+   the filter types (``run_filter_types``) on the same DSTree index: for the
    paper's CNN (channels 256, ksize 3) and LSTM (hidden 64) filter
    backbones, parameters from the port's ``filters.INIT`` (a CUDA generator
    seeded 0; y_mean and y_std copied from the MLP stack, so the
@@ -153,7 +164,11 @@
    and untimed at ``RAGGED_CNN`` and ``RAGGED_RNN`` (m = 96 and 33,
    channels 64 and 100, ksize 1, 2, 3 and 5; hidden 32, 64, 100 and 2500,
    the last two reading the weights through L2 and 2500 keeping its state
-   in memory; F = 1 and 3, Q = 1, 33 and 180).  The build's ``-Xptxas -v`` lines
+   in memory; F = 1 and 3, Q = 1, 33 and 180).  The DTW kernel is held
+   bitwise and timed at the DTW phase's call and at its first query alone
+   (Q = 1), and held bitwise, untimed, at ``RAGGED_DTW`` (m = 33, 96 and
+   256, r = 0, 1, 3, 8, m - 1 and m + 5, Q = 1 and 8, N = 1001: both
+   instances, each printed).  The build's ``-Xptxas -v`` lines
    (registers, shared memory, spills) are printed per kernel; the
    redesigned kernels must not spill.
 9. Prints ``{"kernels": [...]}`` and, as the last line,
@@ -191,6 +206,9 @@ CNN_SOURCE = ("no Pallas kernel: the reference's XLA convolutions, "
               "src/repro/core/filters.py:176 apply_cnn")
 RNN_SOURCE = ("no Pallas kernel: the reference's lax.scan LSTM layers, "
               "src/repro/core/filters.py:233 apply_rnn (:215 _lstm_layer)")
+#: what the DTW kernel replaces: no Pallas kernel
+DTW_SOURCE = ("no Pallas kernel: the reference's jitted lax.scan over the "
+              "table's rows, src/repro/core/dtw.py:29 dtw")
 KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance (atol, rtol), reason);
     # the limits are a few times the f32 reading, below what a TF32 run of
@@ -262,6 +280,10 @@ KERNELS = {
     "filter_rnn": ("src/repro_torch/csrc/filter_rnn.cu", RNN_SOURCE,
                    (0.0, 1e-6), "f32 gate sums in another order, carried "
                    "through 2 x m dependent steps; relative to max|plain|"),
+    "dtw": ("src/repro_torch/csrc/dtw.cu", DTW_SOURCE, (0.0, 0.0),
+            "each cell one correctly rounded operation a step in the "
+            "reference's order, no FMA, minima propagating NaN, a correctly "
+            "rounded root: bitwise"),
 }
 #: relu's derivative jumps at 0: a layer-1 sum within rounding of 0 may land
 #: on the other side in the plain version and move its column of the v_b1
@@ -375,6 +397,14 @@ DESIGN = {
                    "memory as [i][u][gate] where they fit (h = 64), else "
                    "read through L2; h double-buffered, 2 barriers a step; "
                    "f32 FMA", None),
+    "dtw": ("one thread a (query, series) pair, 128 threads a block of 1, "
+            "2, 4 or 8 queries x 128 / that many series; for r = 2, 3, 4, 6, "
+            "8 the band's frame and the series' window in registers, rows "
+            "unrolled in blocks of 2r + 1 (the window's slots at "
+            "compile-time indices), the queries in shared memory, each "
+            "block of rows staging its next 2r + 1 columns through shared "
+            "memory; any other band a resident grid, the frame in a "
+            "scratch buffer", None),
 }
 #: the candidate pass's ``matmul`` form: its survivor pass runs on the
 #: split-TF32 wgmma instance (3 passes: float32 accuracy on the tensor
@@ -387,7 +417,8 @@ SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
                  "leaf_topk_kernel", "leaf_topk_wgmma_kernel",
                  "tc_rounding_kernel", "early_walk_kernel",
-                 "cnn_filter_kernel", "lstm_filter_kernel")
+                 "cnn_filter_kernel", "lstm_filter_kernel",
+                 "dtw_band_kernel", "dtw_any_band_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
 BUILD_KERNELS = ("train_forward", "train_backward_sgd", "filter_mlp")
@@ -397,6 +428,8 @@ DSTREE_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp", "box_lb",
 ISAX_KERNELS = ("pairwise_l2", "slab_l2", "fused_filter_mlp",
                 "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "box_lb",
                 "replay", "leaf_topk") + BUILD_KERNELS
+#: the DTW phase's: both LB_Keogh bounds and the DP
+DTW_KERNELS = ("box_lb", "dtw")
 #: search_early's: the bounds, the predictions and the walk
 SEARCH_KERNELS = ("box_lb", "fused_filter_mlp", "early_walk")
 GROUPED_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
@@ -436,6 +469,7 @@ def card_line() -> str:
 
 def _counter_tables():
     from repro_torch.kernels.box_lb import kernel as box_kernel
+    from repro_torch.kernels.dtw import kernel as dtw_kernel
     from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
@@ -447,7 +481,7 @@ def _counter_tables():
     return (l2_kernel.LAUNCHES, mlp_kernel.LAUNCHES, box_kernel.LAUNCHES,
             replay_kernel.LAUNCHES, train_kernel.LAUNCHES,
             leaf_kernel.LAUNCHES, walk_kernel.LAUNCHES, cnn_kernel.LAUNCHES,
-            rnn_kernel.LAUNCHES)
+            rnn_kernel.LAUNCHES, dtw_kernel.LAUNCHES)
 
 
 def _launch_counters():
@@ -498,6 +532,7 @@ def capture_largest_inputs(captured: dict):
     and their launch counts, are unchanged."""
     from repro_torch.core import conformal
     from repro_torch.kernels.box_lb import kernel as box_kernel
+    from repro_torch.kernels.dtw import kernel as dtw_kernel
     from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
@@ -520,7 +555,8 @@ def capture_largest_inputs(captured: dict):
                 lambda a: "leaf_topk" if a[11] else "leaf_topk@probe"),
                (walk_kernel, "early_walk_cuda", lambda a: "early_walk@calls"),
                (cnn_kernel, "cnn_filter_cuda", lambda a: "filter_cnn"),
-               (rnn_kernel, "lstm_filter_cuda", lambda a: "filter_rnn")]
+               (rnn_kernel, "lstm_filter_cuda", lambda a: "filter_rnn"),
+               (dtw_kernel, "dtw_cuda", lambda a: "dtw")]
     saved = [(conformal, "simulate_search", conformal.simulate_search)]
 
     def simulate_search(*args, _fn=conformal.simulate_search, **kw):
@@ -1145,6 +1181,110 @@ def run_simulators(lfi, series: np.ndarray, queries: np.ndarray, *,
         f"bsf; phase wall {wall:.1f} s")
     return {"summary": out, "walk_searched": float(walked.mean()),
             "wall_s": wall}
+
+
+#: the DTW phase's queries and band (the reference's default)
+DTW_QUERIES, DTW_BAND = 8, 8
+#: the reference tests' margin on the LB_Keogh and Euclidean invariants
+DTW_MARGIN = 1e-4
+
+
+def run_dtw(lfi, queries: np.ndarray, *, n_queries: int = DTW_QUERIES,
+            band: int = DTW_BAND, chunk: int = 1 << 15, device: str = "cuda",
+            captured: dict | None = None) -> dict:
+    """DTW (``repro_torch.core.dtw``) on the index's own leaf-sorted series
+    for its first ``n_queries`` queries: the Keogh envelope of every series
+    and of every leaf (min L and max U over its members, by contiguous
+    segments), the node-level LB_Keogh through ``box_lb``, the point-wise
+    LB_Keogh of every pair through ``box_lb`` and the DTW of every pair in
+    one ``dtw`` launch.  Asserts (on the card) one ``dtw`` and two
+    ``box_lb`` launches, the DTW bitwise equal to its plain version on
+    every pair, lb_keogh <= dtw <= euclidean on every pair (the Euclidean
+    distance summed directly, in chunks of ``chunk`` series) and the node
+    bound <= the least member DTW on every (query, leaf), each within
+    ``DTW_MARGIN``.  Prints each query's DTW 1-NN beside its Euclidean
+    1-NN and the share of leaves whose node bound exceeds the query's DTW
+    1-NN distance.  The DTW call is captured for the kernel checks; the
+    box calls only under ``box_lb@shapes``, so ``box_lb``'s own row keeps
+    the calls of the search paths."""
+    import torch
+    from repro_torch.core import dtw
+    from repro_torch.kernels.dtw import kernel as dtw_kernel
+    from repro_torch.kernels.dtw import ref as dtw_ref
+    idx = lfi.index
+    on_card = torch.device(device).type == "cuda"
+    captured = {} if captured is None else captured
+    t_phase = time.perf_counter()
+    x = idx.series[: idx.n_series]
+    sizes = idx.leaf_size.to(x.device)
+    q = torch.as_tensor(np.asarray(queries[:n_queries], np.float32),
+                        device=x.device)
+    box_rows = {k: captured[k] for k in ("box_lb", "box_lb@min_q")
+                if k in captured}
+    _zero_counters()
+    with capture_largest_inputs(captured):
+        _sync(device)
+        t0 = time.perf_counter()
+        lo, hi = dtw.keogh_envelope(x, band)
+        env_lo = torch.segment_reduce(lo, "min", lengths=sizes, axis=0)
+        env_hi = torch.segment_reduce(hi, "max", lengths=sizes, axis=0)
+        del lo, hi
+        node = dtw.lb_keogh_leaves(q, env_lo, env_hi)          # (Q, L)
+        lb = dtw.lb_keogh(q, x, band)                          # (Q, N)
+        d = dtw.dtw(q, x, band)                                # (Q, N)
+        _sync(device)
+        t_path = time.perf_counter() - t0
+    launches = _launch_counters()
+    for k in ("box_lb", "box_lb@min_q"):
+        if k in box_rows:
+            captured[k] = box_rows[k]
+        else:
+            captured.pop(k, None)
+    _check_launches(launches, _instance_launches(), DTW_KERNELS, "dtw",
+                    on_card)
+    if on_card:
+        assert launches["dtw"] == 1 and launches["box_lb"] == 2, launches
+    Q, N, L = q.shape[0], x.shape[0], env_lo.shape[0]
+    assert d.shape == lb.shape == (Q, N) and node.shape == (Q, L)
+    assert torch.isfinite(d).all() and torch.isfinite(lb).all()
+    t0 = time.perf_counter()
+    assert _bitwise_equal(d, dtw_ref.dtw(q, x, band)), \
+        "dtw disagrees with its plain version"
+    t_hold = time.perf_counter() - t0
+    eu = torch.empty_like(d)
+    for s in range(0, N, chunk):
+        diff = q[:, None, :] - x[None, s:s + chunk]
+        eu[:, s:s + chunk] = torch.sqrt((diff * diff).sum(-1))
+    del diff
+    member = torch.segment_reduce(d.t().contiguous(), "min", lengths=sizes,
+                                  axis=0).t()                  # (Q, L)
+    over = {"lb_keogh - dtw": (lb - d).max().item(),
+            "dtw - euclidean": (d - eu).max().item(),
+            "node bound - least member dtw": (node - member).max().item()}
+    log(f"dtw: {Q} queries x {N} series (m = {q.shape[1]}, r = {band}, "
+        f"{dtw_kernel.instance(q.shape[1], band)}), {L} leaves: envelopes, "
+        f"both LB_Keogh bounds and the DTW in {t_path:.3f} s on "
+        f"{x.device}; the DTW bitwise equal to its plain version on all "
+        f"{Q * N} pairs (the plain run {t_hold:.2f} s); largest excess "
+        + json.dumps(over) + f" (margin {DTW_MARGIN:g})")
+    assert all(v <= DTW_MARGIN for v in over.values()), over
+    nn_d, nn_row = d.min(1)
+    eu_d, eu_row = eu.min(1)
+    ids = idx.order.to(x.device)
+    pruned = (node > nn_d[:, None]).float().mean(1)
+    for i in range(Q):
+        log(f"dtw query {i}: DTW 1-NN {nn_d[i].item():.6f} (id "
+            f"{ids[nn_row[i]].item()}, euclidean there "
+            f"{eu[i, nn_row[i]].item():.6f}); euclidean 1-NN "
+            f"{eu_d[i].item():.6f} (id {ids[eu_row[i]].item()}, DTW there "
+            f"{d[i, eu_row[i]].item():.6f}); LB_Keogh alone prunes "
+            f"{pruned[i].item():.4f} of the leaves")
+    wall = time.perf_counter() - t_phase
+    log(f"dtw: LB_Keogh alone prunes {pruned.mean().item():.4f} of the "
+        f"leaves on average (node bound > the query's DTW 1-NN); phase wall "
+        f"{wall:.1f} s")
+    return {"launches": launches, "pruned": pruned.cpu().numpy(),
+            "nn": nn_d.cpu().numpy(), "wall_s": wall}
 
 
 def run_filter_types(lfi, queries: np.ndarray, *, n_search: int = 64,
@@ -2148,6 +2288,10 @@ def _bound(name: str, args, passes: int | None = None) -> tuple:
         return _train_bound(name, args, passes)
     elif name in ("filter_cnn", "filter_rnn"):
         flops, nbytes = _backbone_work(name, args)
+    elif name == "dtw":
+        from repro_torch.kernels.dtw import ref as dtw_ref
+        q, x, band = args
+        return dtw_ref.bound(q.shape[0], x.shape[0], q.shape[1], band)
     elif name == "filter_mlp":           # raw z
         q, w1 = args[0], args[1]
         Q = q.shape[0]
@@ -2395,6 +2539,8 @@ def _kernel_tables():
     import torch
     from repro_torch.kernels.box_lb import kernel as box_kernel
     from repro_torch.kernels.box_lb import ref as box_ref
+    from repro_torch.kernels.dtw import kernel as dtw_kernel
+    from repro_torch.kernels.dtw import ref as dtw_ref
     from repro_torch.kernels.early_walk import kernel as walk_kernel
     from repro_torch.kernels.early_walk import ref as walk_ref
     from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
@@ -2424,7 +2570,8 @@ def _kernel_tables():
                  "leaf_topk": leaf_kernel.leaf_topk_cuda,
                  "early_walk": walk_kernel.early_walk_cuda,
                  "filter_cnn": cnn_kernel.cnn_filter_cuda,
-                 "filter_rnn": rnn_kernel.lstm_filter_cuda}
+                 "filter_rnn": rnn_kernel.lstm_filter_cuda,
+                 "dtw": dtw_kernel.dtw_cuda}
     plain_fn = {"pairwise_l2": l2_ref.pairwise_l2_matmul,
                 "slab_l2": l2_ref.slab_l2_matmul,
                 "fused_filter_mlp": _plain_mlp,
@@ -2441,7 +2588,8 @@ def _kernel_tables():
                 # the kernel's call ends with max_leaf, which sizes its items
                 "early_walk": lambda *a: walk_ref.early_walk(*a[:-1]),
                 "filter_cnn": cnn_ref.cnn_filter,
-                "filter_rnn": rnn_ref.lstm_filter}
+                "filter_rnn": rnn_ref.lstm_filter,
+                "dtw": dtw_ref.dtw}
     library_fn = {"pairwise_l2": torch.cdist, "slab_l2": torch.cdist}
     return kernel_fn, plain_fn, library_fn
 
@@ -2671,6 +2819,9 @@ def _hold(name: str, args, label: str) -> dict:
     want = _outputs(name, plain_fn[name], args)
     torch.cuda.synchronize()
     assert [g.shape for g in got] == [w.shape for w in want]
+    if (atol, rtol) == (0.0, 0.0):
+        assert all(_bitwise_equal(g, w) for g, w in zip(got, want)), \
+            f"{label} is not bitwise equal to its plain version"
     errs = _errors(name, got, want, args)
     # the output nearest its limit
     near = max(errs, key=lambda e: e["max_abs_err"] / max(e["tolerance"],
@@ -2697,7 +2848,7 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     import torch
     held = _hold(name, args, label)
     kernel_fn, plain_fn, library_fn = _kernel_tables()
-    if name not in ("box_lb", "replay", "leaf_topk", "early_walk") \
+    if name not in ("box_lb", "replay", "leaf_topk", "early_walk", "dtw") \
             and label == name:
         # what the same check reads for a TF32 run of the plain version
         want = _outputs(name, plain_fn[name], args)
@@ -2720,9 +2871,10 @@ def _check_call(name: str, args, label: str, power: str) -> dict:
     graph_ms = _graph_ms(lambda f=kernel_fn[name], a=args: f(*a), reps=reps)
     # the plain replay is a host loop of ~20 launches a position, the plain
     # candidate pass a bucket loop of gathers and sorts (~0.2-0.5 s a batch),
-    # the plain walk ~25 launches and a sync a searched leaf
+    # the plain walk ~25 launches and a sync a searched leaf; the plain DTW,
+    # ~3 launches an in-band cell of a row, takes ~1.8 s at 8 x 1M pairs
     plain_ms = _time_ms(lambda f=plain_fn[name], a=args: f(*a),
-                        reps=min(reps, 2 if name in (
+                        reps=min(reps, 1 if name == "dtw" else 2 if name in (
                             "replay", "leaf_topk", "early_walk") else 20))
     lib = library_fn.get(name)
     library_ms = (None if lib is None
@@ -3189,12 +3341,47 @@ def filter_type_calls(device: str = "cuda") -> dict:
     return calls
 
 
+#: (m, bands) of the DTW kernel's held calls, each at Q = 1 and 8 against
+#: N = 1001 series (not a multiple of a block's series): r = 3 and 8 take
+#: register instances, r = 0, 1, m - 1 and m + 5 (full DTW) the generic
+RAGGED_DTW = tuple((m, (0, 1, 3, 8, m - 1, m + 5)) for m in (33, 96, 256))
+
+
+def dtw_calls(device: str = "cuda") -> list:
+    """The DTW kernel's held calls (numpy seed 3): random walks, z-normalized,
+    with every fourth series rounded to a quarter (ties and repeated
+    values) and the queries drawn beside them."""
+    import torch
+    rng = np.random.default_rng(3)
+
+    def walks(n, m):
+        w = rng.standard_normal((n, m)).cumsum(1)
+        w = (w - w.mean(1, keepdims=True)) / (w.std(1, keepdims=True)
+                                              + 1e-8)
+        w[::4] = np.round(w[::4] * 4) / 4
+        return torch.as_tensor(w.astype(np.float32), device=device)
+    calls = []
+    for m, bands in RAGGED_DTW:
+        x, q = walks(1001, m), walks(8, m)
+        calls += [(q[:n_q].contiguous(), x, band) for band in bands
+                  for n_q in (1, 8)]
+    return calls
+
+
 def _rnn_layout(args) -> str:
     """The LSTM kernel's instance for a call: where its weights and state
     live, queries a block, shared memory, registers and scratch."""
     from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
     F, h = args[5].shape
     return json.dumps(rnn_kernel.layout(F, args[0].shape[0], h))
+
+
+def _dtw_label(args) -> str:
+    """A DTW call's length, band and kernel instance."""
+    from repro_torch.kernels.dtw import kernel as dtw_kernel
+    q, _, band = args
+    return (f"m={q.shape[1]}, band={band}: "
+            f"{dtw_kernel.instance(q.shape[1], band)}")
 
 
 def _q_label(name: str, n_q: int) -> str:
@@ -3247,7 +3434,8 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.leaf_topk import ref as leaf_ref
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls(),
-              "early_walk": early_walk_calls(), **filter_type_calls()}
+              "early_walk": early_walk_calls(), **filter_type_calls(),
+              "dtw": dtw_calls()}
     ragged["leaf_topk"] = [_leaf_topk_fresh(c, impl)
                            for c in leaf_topk_calls()
                            + staged_leaf_topk_calls()
@@ -3255,6 +3443,7 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     ragged["filter_mlp"] = [c[:5] for c in ragged["fused_filter_mlp"]]
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():
+        t_row = time.perf_counter()
         if name not in captured:
             raise AssertionError(f"{name}: never called on the main path")
         args = captured[name][1]
@@ -3329,6 +3518,11 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 row["probe_call"] = {k: probe[k] for k in keep}
         if name == "filter_rnn":
             row["layout"] = _rnn_layout(args)
+        if name == "dtw":
+            row["instance"] = _dtw_label(args)
+            row["q1_call"] = {"Q": 1, **_check_call(
+                name, (args[0][:1].contiguous(),) + tuple(args[1:]),
+                f"dtw (Q=1, {_dtw_label(args)})", power)}
         if held:
             row["held_calls"] = []
             for call in held:
@@ -3338,7 +3532,12 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                     label = _q_label(name, call[0].shape[0])
                 if name == "filter_rnn":
                     label += f" {_rnn_layout(call)}"
+                if name == "dtw":
+                    label = (f"dtw (Q={call[0].shape[0]}, N="
+                             f"{call[1].shape[0]}, {_dtw_label(call)})")
                 row["held_calls"].append(_hold(name, call, f"{label}, held"))
+        row["check_wall_s"] = round(time.perf_counter() - t_row, 2)
+        log(f"kernel checks of {name}: {row['check_wall_s']} s")
         rows.append(row)
     return rows
 
@@ -3484,7 +3683,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = common.build(["l2_scan", "filter_mlp", "box_lb", "replay",
                          "filter_train", "leaf_topk", "tc_rounding",
-                         "early_walk", "filter_cnn", "filter_rnn"])
+                         "early_walk", "filter_cnn", "filter_rnn", "dtw"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     _ptxas_report(logs)
     from repro_torch.kernels.filter_train import kernel as train_kernel
@@ -3523,6 +3722,8 @@ def main() -> int:
           e2e["queries"], device="cuda")
     phase("simulators", run_simulators, e2e["lfi"], series, e2e["queries"],
           device="cuda")
+    paths.append(phase("dtw", run_dtw, e2e["lfi"], e2e["queries"],
+                       device="cuda", captured=captured)["launches"])
     paths.append(phase("filter types", run_filter_types, e2e["lfi"],
                        e2e["queries"], device="cuda",
                        captured=captured)["launches"])

@@ -168,7 +168,7 @@ def test_chip_smoke_end_to_end_rehearsal_on_cpu(capsys):
                                     "filter_mlp", "replay", "train_forward",
                                     "train_backward_sgd", "leaf_topk",
                                     "early_walk", "filter_cnn",
-                                    "filter_rnn"}
+                                    "filter_rnn", "dtw"}
     parts = smoke.search_breakdown(out["lfi"], out["queries"], reps=1)
     assert parts["search"] > 0 and parts["replay"] > 0
     steps = smoke.collect_breakdown(out["lfi"], "dstree ")
@@ -268,7 +268,8 @@ def test_new_modules_are_checked():
                 "kernels/early_walk/kernel.py", "kernels/early_walk/ref.py",
                 "core/baselines.py", "core/selection.py",
                 "kernels/filter_cnn/kernel.py", "kernels/filter_cnn/ref.py",
-                "kernels/filter_rnn/kernel.py", "kernels/filter_rnn/ref.py"):
+                "kernels/filter_rnn/kernel.py", "kernels/filter_rnn/ref.py",
+                "kernels/dtw/kernel.py", "kernels/dtw/ref.py", "core/dtw.py"):
         assert mod in names
 
 

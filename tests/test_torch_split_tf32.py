@@ -92,8 +92,9 @@ def test_chip_limits_are_unchanged():
                            "fused_filter_mlp_bf16", "fused_filter_mlp_int8",
                            "box_lb", "filter_mlp", "replay", "train_forward",
                            "train_backward_sgd", "leaf_topk", "early_walk",
-                           "filter_cnn", "filter_rnn"}
+                           "filter_cnn", "filter_rnn", "dtw"}
     assert limits.pop("filter_rnn") == (0.0, 1e-6)
+    assert limits.pop("dtw") == (0.0, 0.0)
     assert limits.pop("replay") == (0.0, 0.0)
     assert limits.pop("early_walk") == (0.0, 0.0)
     assert limits.pop("train_forward") == (0.0, 2e-5)
