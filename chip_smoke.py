@@ -161,10 +161,13 @@
    128 and 65, h != m and batches 128, 8 and 4.  The CNN and LSTM kernels
    are held at their calibration call (F = 4096, Q = 180) and at Q = 1,
    timed (reps by their bound), a TF32 plain run beside as the control,
-   and untimed at ``RAGGED_CNN`` and ``RAGGED_RNN`` (m = 96 and 33,
-   channels 64 and 100, ksize 1, 2, 3 and 5; hidden 32, 64, 100 and 2500,
-   the last two reading the weights through L2 and 2500 keeping its state
-   in memory; F = 1 and 3, Q = 1, 33 and 180).  The DTW kernel is held
+   each with its launch (the CNN's tile and the c2 bytes it stages from
+   L2, the LSTM's instance), and untimed at ``RAGGED_CNN`` and
+   ``RAGGED_RNN`` (m = 1, 33, 96 and 300, channels 40, 64, 98, 100 and
+   130, ksize 1, 2, 3 and 5; hidden 32 and 64 on either side of the
+   few-query limit, 100 and 2500 on the generic instance, the last two
+   reading the weights through L2 and 2500 keeping its state in memory;
+   F = 1 .. 3, Q = 1 .. 300), each printing its launch.  The DTW kernel is held
    bitwise and timed at the DTW phase's call and at its first query alone
    (Q = 1), and held bitwise, untimed, at ``RAGGED_DTW`` (m = 33, 96 and
    256, r = 0, 1, 3, 8, m - 1 and m + 5, Q = 1 and 8, N = 1001: both
@@ -385,18 +388,34 @@ DESIGN = {
                   "32): one warp a (query, leaf) pair, pairs leaf-major, "
                   "32 rows a step straight from the series, top-kk in "
                   "registers for kk <= 32, in the output row beyond", None),
-    "filter_cnn": ("a block per (filter, max(1, 128 / m) queries); conv 2 "
-                   "an implicit GEMM of 128 (query, position) rows x 128 "
-                   "channels over K shifts x 8-channel stages, double-"
-                   "buffered in shared memory, its A stages conv 1's "
-                   "output recomputed as staged; f32 FMA, 8 x 8 a thread; "
-                   "the epilogue's sums in a fixed order", None),
-    "filter_rnn": ("a block of 256 threads per (filter, 4 x 256 / min(h, "
-                   "256) queries) runs both layers' m steps, a thread one "
-                   "unit's 4 gates for 4 queries; wh1, wi2, wh2 in shared "
-                   "memory as [i][u][gate] where they fit (h = 64), else "
-                   "read through L2; h double-buffered, 2 barriers a step; "
-                   "f32 FMA", None),
+    "filter_cnn": ("a block per (filter, query tile): its queries, each "
+                   "followed by K - 1 zero columns, fill 256 columns; a "
+                   "producer warpgroup and 2 consumer warpgroups, an "
+                   "mbarrier ring of B tiles (a 32-channel chunk each) and "
+                   "one of c2 tiles (a (chunk, shift) each); conv 2 on "
+                   "split-TF32 wgmma m64n256k8, D = c2^T . h1^T (64 output "
+                   "channels x 256 columns a warpgroup, 128 channels a "
+                   "pass): A = c2 split in registers from a [32 input][128 "
+                   "output channels] tile staged by cp.async as c2 stores "
+                   "it, B = conv 1's output written by the producer, raw "
+                   "and lo, K-major without swizzle in 288 lines, one tile "
+                   "serving every shift by its descriptor's start; conv 1 "
+                   "once per (row, channel) a pass from the staged, "
+                   "zero-padded query rows; the epilogue's sums in a fixed "
+                   "order", 3),
+    "filter_rnn": ("three instances by (h, Q).  few (h = 32, 64, Q <= "
+                   "FEW_MAX_Q): a block of 3h^2/32 threads a (filter, "
+                   "query), all three h x 4h weights in registers (128 a "
+                   "thread: two units' gates over 16 inputs), the slices "
+                   "reduced by warp shuffles in a fixed tree; many (h = 32, "
+                   "64, Q > FEW_MAX_Q): a block a (filter, 16 queries), the "
+                   "weights in shared memory read once a step for all 16 "
+                   "queries (a thread one unit's gates over 32 inputs), the "
+                   "queries reduce-scattered over the slices; both run "
+                   "layer 1's step t + 1 beside layer 2's step t, one "
+                   "barrier a step; generic (any other h): a thread one "
+                   "unit's 4 gates for 4 queries, the weights in shared "
+                   "memory or through L2, 2 barriers a step; f32 FMA", None),
     "dtw": ("one thread a (query, series) pair, 128 threads a block of 1, "
             "2, 4 or 8 queries x 128 / that many series; for r = 2, 3, 4, 6, "
             "8 the band's frame and the series' window in registers, rows "
@@ -417,7 +436,8 @@ SPLIT_KERNELS = ("l2_tf32x3_kernel", "slab_tf32x3_kernel", "mlp_tile_kernel",
                  "train_forward_kernel", "train_backward_sgd_kernel",
                  "leaf_topk_kernel", "leaf_topk_wgmma_kernel",
                  "tc_rounding_kernel", "early_walk_kernel",
-                 "cnn_filter_kernel", "lstm_filter_kernel",
+                 "cnn_filter_kernel", "lstm_few_kernel",
+                 "lstm_many_kernel", "lstm_generic_kernel",
                  "dtw_band_kernel", "dtw_any_band_kernel")
 #: the kernels every build launches: training's two a step, ``filter_mlp``
 #: for its validation passes
@@ -3297,19 +3317,26 @@ def ragged_calls(device: str = "cuda") -> dict:
 
 
 #: (F, Q, m, channels, ksize) of the CNN kernel's ragged held calls: m =
-#: 96 and 33 (a block of 1 and of 3 queries, partial row tiles), channels
-#: 64 and 100 (a partial channel tile; 100 % 8 != 0, a partial stage; and
-#: C % 4 != 0 at 98: c2 without 16-byte loads), ksize 1, 2 (even: one more
-#: pad after than before), 3 and 5
+#: 96 and 33 (a block of 2 and of 7 queries, each followed by its K - 1
+#: zero columns), 300 (a query over two column tiles, its halo across
+#: them) and 1 (86 queries a block, four query tiles); channels 64 (one
+#: consumer warpgroup idle), 100 (a partial pass and 32-channel chunk),
+#: 130 (two passes, the second of 2 channels) and 98 (C % 4 != 0: c2
+#: staged element by element); ksize 1, 2 (even: one more pad after than
+#: before), 3 and 5
 RAGGED_CNN = ((1, 1, 96, 64, 3), (3, 33, 33, 100, 2), (3, 180, 96, 100, 5),
-              (1, 33, 33, 64, 1), (3, 1, 33, 98, 5), (1, 180, 96, 64, 2))
-#: (F, Q, m, hidden) of the LSTM kernel's: hidden 32 and 64 (the weights in
-#: shared memory), 100 (read through L2; a partial last thread group) and
-#: 2500 (the state too large for shared memory: kept in memory, a thread
-#: ten units), m = 96 and 33
+              (1, 33, 33, 64, 1), (3, 1, 33, 98, 5), (1, 180, 96, 64, 2),
+              (2, 3, 300, 130, 2), (1, 300, 1, 40, 3))
+#: (F, Q, m, hidden) of the LSTM kernel's: hidden 32 and 64 on either side
+#: of the few-query limit (Q = 1 and ``FEW_MAX_Q`` take the weights in
+#: registers, ``FEW_MAX_Q`` + 1 and more the 16-query tiles, 17 and 33 a
+#: partial last tile), 100 (the generic instance, the weights through L2;
+#: a partial last thread group) and 2500 (the state too large for shared
+#: memory: kept in memory, a thread ten units), m = 96, 40 and 33
 RAGGED_RNN = ((1, 1, 96, 32), (3, 33, 33, 64), (3, 180, 96, 100),
               (1, 180, 33, 64), (3, 1, 33, 100), (1, 33, 96, 32),
-              (1, 5, 4, 2500))
+              (2, 8, 40, 64), (2, 9, 40, 64), (2, 8, 33, 32), (3, 9, 33, 32),
+              (2, 17, 40, 64), (1, 5, 4, 2500))
 
 
 def filter_type_calls(device: str = "cuda") -> dict:
@@ -3369,11 +3396,27 @@ def dtw_calls(device: str = "cuda") -> list:
 
 
 def _rnn_layout(args) -> str:
-    """The LSTM kernel's instance for a call: where its weights and state
-    live, queries a block, shared memory, registers and scratch."""
+    """The LSTM kernel's instance for a call: its instance, threads and
+    queries a block, where its weights and state live, shared memory,
+    registers, scratch and the few-query limit."""
     from repro_torch.kernels.filter_rnn import kernel as rnn_kernel
     F, h = args[5].shape
     return json.dumps(rnn_kernel.layout(F, args[0].shape[0], h))
+
+
+def _cnn_layout(args) -> str:
+    """The CNN kernel's launch for a call: queries a block, rows a tile,
+    channels a pass, stages a block, how c2 is staged, shared memory,
+    registers and the c2 bytes the grid stages from L2."""
+    from repro_torch.kernels.filter_cnn import kernel as cnn_kernel
+    Q, m = args[0].shape
+    F, K, _, C = args[1].shape
+    return json.dumps(cnn_kernel.layout(F, Q, m, K, C,
+                                        args[2].data_ptr() % 16 == 0))
+
+
+#: the backbone kernels' launch reports, by kernel
+BACKBONE_LAYOUT = {"filter_cnn": _cnn_layout, "filter_rnn": _rnn_layout}
 
 
 def _dtw_label(args) -> str:
@@ -3516,8 +3559,14 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                                     "leaf_topk (the probe's largest call)",
                                     power)
                 row["probe_call"] = {k: probe[k] for k in keep}
-        if name == "filter_rnn":
-            row["layout"] = _rnn_layout(args)
+        if name in BACKBONE_LAYOUT:
+            row["layout"] = BACKBONE_LAYOUT[name](args)
+            log(f"kernel {name} (the largest call) launch: {row['layout']}")
+            if "smallest_q_call" in row:
+                row["smallest_q_call"]["layout"] = BACKBONE_LAYOUT[name](
+                    captured[f"{name}@min_q"][1])
+                log(f"kernel {name} (Q={row['smallest_q_call']['Q']}) "
+                    f"launch: {row['smallest_q_call']['layout']}")
         if name == "dtw":
             row["instance"] = _dtw_label(args)
             row["q1_call"] = {"Q": 1, **_check_call(
@@ -3530,8 +3579,8 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 if name in mlp_kernel.LAUNCHES or name in (
                         "box_lb", "filter_cnn", "filter_rnn"):
                     label = _q_label(name, call[0].shape[0])
-                if name == "filter_rnn":
-                    label += f" {_rnn_layout(call)}"
+                if name in BACKBONE_LAYOUT:
+                    label += f" {BACKBONE_LAYOUT[name](call)}"
                 if name == "dtw":
                     label = (f"dtw (Q={call[0].shape[0]}, N="
                              f"{call[1].shape[0]}, {_dtw_label(call)})")

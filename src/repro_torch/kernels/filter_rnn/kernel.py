@@ -4,12 +4,18 @@ Source: ``src/repro_torch/csrc/filter_rnn.cu``.  It replaces no Pallas
 kernel: the reference computes the LSTM filters in XLA
 (``src/repro/core/filters.py:233`` ``apply_rnn``, a ``lax.scan`` a layer).
 Operations bound it (3·h·4h multiply-adds a step).  A block per (filter,
-query tile) runs all m steps of both layers, layer 2's step t right after
-layer 1's; a thread owns one unit's four gates for four queries.  The
-instance follows the shape (:func:`layout`): the three h × 4h weights in
-shared memory where they fit beside the state (h = 64), read through L2
-otherwise, and the state in a global scratch row where even it does not
-fit.  :func:`lstm_filter` checks its inputs, allocates the output (and any
+query tile) runs all m steps of both layers.  Three instances, by (h, Q)
+(:func:`instance`, :func:`layout`): at h = 32 and 64, **few** for Q <=
+:data:`FEW_MAX_Q` (a block per (filter, query) holds the three h × 4h
+weights in registers, a thread two units' gates over 16 inputs, the
+slices reduced by shuffles; layer 1's step t + 1 beside layer 2's step t,
+one barrier a step) and **many** beyond (a block per (filter, 16
+queries), the weights in shared memory read once a step for all 16
+queries, a thread one unit's gates over 32 inputs); any other h the
+**generic** instance (a thread one unit's four gates for four queries; the
+weights in shared memory where they fit, read through L2 otherwise, the
+state in a global scratch row where even it does not fit).
+:func:`lstm_filter` checks its inputs, allocates the output (and any
 scratch) with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch reports a CUDA error, and adds one to
 :data:`LAUNCHES`.
@@ -32,18 +38,37 @@ _SIGNATURES = {
     "lstm_filter_layout": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
-_LAYOUT = ("weights_in_smem", "state_in_smem", "queries_a_block",
-           "smem_bytes", "registers", "scratch_floats")
+#: the few-query instance serves Q up to this (``FEW_MAX_Q`` in the
+#: source); the many-query instance's queries a block (``QB``)
+FEW_MAX_Q = 8
+MANY_QUERIES = 16
+#: the widths with a few- and a many-query instance
+TUNED_H = (32, 64)
+INSTANCES = ("generic", "few", "many")
+
+_LAYOUT = ("instance", "threads", "queries_a_block", "weights_in_smem",
+           "weight_registers", "state_in_smem", "smem_bytes", "registers",
+           "scratch_floats", "few_max_q")
+
+
+def instance(h: int, Q: int) -> str:
+    """The instance the C entry takes for hidden width h and Q queries."""
+    if h in TUNED_H:
+        return "few" if Q <= FEW_MAX_Q else "many"
+    return "generic"
 
 
 def layout(F: int, Q: int, h: int) -> dict:
-    """The launch the C entry makes for (F, Q, h): where the weights and
-    the state live, queries a block, dynamic shared memory, registers a
-    thread and the scratch it needs."""
+    """The launch the C entry makes for (F, Q, h): its instance, threads
+    and queries a block, where the weights and the state live, dynamic
+    shared memory, registers a thread, the scratch it needs and the
+    few-query instance's largest Q."""
     lib = common.load("filter_rnn", _SIGNATURES)
     out = (ctypes.c_longlong * len(_LAYOUT))()
     common.check(lib.lstm_filter_layout(F, Q, h, out), "lstm_filter_layout")
-    return dict(zip(_LAYOUT, out))
+    got = dict(zip(_LAYOUT, out))
+    got["instance"] = INSTANCES[got["instance"]]
+    return got
 
 
 def lstm_filter_cuda(queries: torch.Tensor, wi1: torch.Tensor,

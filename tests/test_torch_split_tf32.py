@@ -369,7 +369,7 @@ def test_chip_smoke_tensor_core_bound():
     assert {name for name, (_, passes) in smoke.DESIGN.items() if passes} \
         == {"pairwise_l2", "slab_l2", "fused_filter_mlp",
             "fused_filter_mlp_bf16", "fused_filter_mlp_int8", "filter_mlp",
-            "train_forward", "train_backward_sgd"}
+            "train_forward", "train_backward_sgd", "filter_cnn"}
     assert set(smoke.DESIGN) == set(smoke.KERNELS)
 
 
