@@ -91,7 +91,16 @@
    per-query-target queries, k = 1 and 5, beside the vectorised per-query
    batch: recall, pruning, the share of identical ids; asserts the
    reference's serving tolerances between the two, and that the replay
-   kernel launched.
+   kernel launched.  Then the trace and the audit (``run_trace_audit``):
+   the 256 queries through ``LeaFiIndex.search(trace=True, audit=True)``,
+   k = 1 and 5, exact and 0.99, the default pass and (k = 5) ``pairwise``,
+   each bitwise equal to the untraced batch in its answers and counters,
+   both accounting identities zero, the audit's leaf sums the trace's
+   query sums; then again with the prune-only bound ``bsf_ub`` (the exact
+   k-th distance, inflated): exact answers those of the unbounded batch,
+   seed prunes, the bounded batches on the replay's bound instance
+   (launches by instance asserted); a traced batch's median wall beside
+   the untraced one's.
 6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
    own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
    index's shape (its F, Q = 256, m = h = 256): the per-filter
@@ -99,7 +108,8 @@
    against its roofline bound; asserts that all four launched.  Then a
    DSTree at 64 EAPCA segments (d = 128 box dimensions, beyond the box
    kernel's register instances) on RandWalk 100,000 × 256: exact search
-   == brute force for 64 queries at k = 5.
+   == brute force for 64 queries at k = 5, and its scan strategy with
+   trace and audit (``_scan_trace_audit``: bitwise the untraced scan).
 7. iSAX, end to end on the same collection: ``build_leafi(LeaFiConfig(
    backbone="isax", word_len=8, leaf_capacity=256,
    t_filter_over_t_series=20.0))`` with float32 filter weights, then
@@ -110,7 +120,7 @@
    just before the build, read after the last search).  Prints each
    index's recall@1 at target 0.99 on its own calibration split (DSTree's
    too) beside the tuner's quality knots.  Then the same layer and
-   collection breakdowns for iSAX.  Then the paper's deep- and sift-like
+   collection breakdowns and the trace-and-audit phase for iSAX.  Then the paper's deep- and sift-like
    collections at their own widths (m = 96 and 128, 200,000 series each,
    ``run_datasets``): a DSTree build, 64 queries exact and at 0.99, k = 1
    and 5, exact == brute force; each index's filters trained a second time
@@ -120,7 +130,10 @@
    allowed, the control.
 8. Holds each kernel against its plain PyTorch version on the card, on the
    largest inputs the main paths gave it (the replay bitwise, its top-k and
-   its three counters, also on calibration's largest call, each printed
+   its three counters, each held call also through its bound and traced
+   instances (five counters; ``replay_bound``) and the four timed in turns
+   at the batch's and calibration's calls, also on calibration's largest
+   call, each printed
    with its kernel instance and its rows' chain, each asserted to take
    the instance whose walk reads shared memory only and, at the batch, to
    put a block on every SM; and, for the
@@ -246,7 +259,7 @@ KERNELS = {
                "no Pallas kernel: the reference's lax.scan replay, "
                "src/repro/core/engine.py:307",
                (0.0, 0.0), "comparisons and selection only: bitwise, the "
-               "top-k and all three counters"),
+               "top-k and all its counters (three; five traced)"),
     # dpred carries the loss's 2·w/(F·batch) scale, so an absolute term
     # would hold nothing: within 2e-5 of its own largest value (tighter
     # than 1e-4 + 1e-5·max below max 10)
@@ -341,7 +354,10 @@ DESIGN = {
                "memory only (k <= 32, kk <= 8).  A block a row of 1 + 7 "
                "warps (a batch's 256 rows fill every SM; at calibration "
                "few rows in flight on an SM); top-k in registers for k <= "
-               "32, in the output row beyond", None),
+               "32, in the output row beyond.  Three instances: plain, the "
+               "prune-only bound (the lb test against min(bsf, ub)) and "
+               "the traced (the box/seed split; its producers drop only "
+               "certain box prunes)", None),
     "early_walk": ("a persistent grid of one block of 8 warps a SM, "
                    "launched cooperatively (every block resident): scorer "
                    "warps claim (leaf, 64 rows) items in visit order, "
@@ -514,9 +530,17 @@ def _instance_launches() -> dict:
     return dict(leaf_kernel.INSTANCE_LAUNCHES)
 
 
+def _replay_mode_launches() -> dict:
+    """The replay's launches by instance (``kernel.mode``)."""
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    return dict(replay_kernel.MODE_LAUNCHES)
+
+
 def _zero_counters() -> None:
     from repro_torch.kernels.leaf_topk import kernel as leaf_kernel
-    for table in _counter_tables() + (leaf_kernel.INSTANCE_LAUNCHES,):
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    for table in _counter_tables() + (leaf_kernel.INSTANCE_LAUNCHES,
+                                      replay_kernel.MODE_LAUNCHES):
         for name in table:
             table[name] = 0
 
@@ -543,7 +567,9 @@ def capture_largest_inputs(captured: dict):
     the largest call made by calibration apart (``replay@calibration``,
     the calls inside ``conformal.simulate_search``); for the candidate pass
     the probe's calls apart (``leaf_topk@probe``, rows by slot); for the
-    early walk every call, in order (``early_walk@calls``).  The
+    early walk every call, in order (``early_walk@calls``).  A replay
+    call with a bound or a trace (its bound or traced instance) passes
+    through unrecorded.  The
     training kernels' calls all have one size per build; of the largest build's, the
     ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
     it was given cloned (later steps update them in place) and without the
@@ -589,8 +615,10 @@ def capture_largest_inputs(captured: dict):
     for mod, attr, naming in targets:
         fn = getattr(mod, attr)
 
-        def wrapped(*args, _fn=fn, _naming=naming):
-            out = _fn(*args)
+        def wrapped(*args, _fn=fn, _naming=naming, **kw):
+            out = _fn(*args, **kw)
+            if kw.get("bsf_ub") is not None or kw.get("trace"):
+                return out         # the replay's bound or traced instance
             name = _naming(args)
             if name == "early_walk@calls":
                 captured.setdefault(name, []).append(args)
@@ -941,7 +969,32 @@ def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
                     f"DSTree d={2 * n_segments}", on_card)
     _check_build_launches(launches, lfi, f"dstree d={2 * n_segments} ",
                           on_card)
+    _scan_trace_audit(lfi, queries, device, f"dstree d={2 * n_segments} ")
     return {"launches": launches}
+
+
+def _scan_trace_audit(lfi, queries: np.ndarray, device: str,
+                      label: str) -> None:
+    """The scan strategy (a loop over the L positions, every leaf scored)
+    with trace and audit, k = 5, exact and at 0.99: bitwise the untraced
+    scan's answers and counters, both accounting residuals zero, the
+    survivors the searched leaves, no probe and no seed prune."""
+    for name, target in (("exact", None), ("0.99", 0.99)):
+        kw = dict(k=5, quality_target=target, device=device,
+                  strategy="scan")
+        t0 = time.perf_counter()
+        plain = lfi.search(queries, **kw)
+        t1 = time.perf_counter()
+        traced = lfi.search(queries, trace=True, audit=True, **kw)
+        t2 = time.perf_counter()
+        tag = f"{label}scan k=5 {name}"
+        assert _same_answers(plain, traced), f"{tag}: the trace changed it"
+        sums = _check_trace_audit(traced, lfi.index.n_leaves, tag)
+        assert (traced.trace["survivors"] == traced.searched).all(), tag
+        assert sums["probed"] == 0 and sums["pruned_seed"] == 0, sums
+        log(f"{tag} with trace and audit: trace sums {json.dumps(sums)}; "
+            f"scan {(t1 - t0) * 1e3:.0f} ms untraced, "
+            f"{(t2 - t1) * 1e3:.0f} ms traced and audited")
 
 
 def _stack_results(rs, n_leaves: int):
@@ -1460,6 +1513,136 @@ def run_grouped(lfi, queries: np.ndarray, targets: dict, batched: dict, *,
     return {"launches": launches, "results": results}
 
 
+#: the kernels of the trace-and-audit phase's searches
+TRACE_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
+#: the answer's fields that trace and audit must leave bitwise as they are
+ANSWER_FIELDS = ("dists", "ids", "searched", "pruned_lb", "pruned_filter",
+                 "computed")
+
+
+def _same_answers(a, b) -> bool:
+    """Two search results' answers and counters bitwise equal."""
+    def bits(x):
+        return x.view(np.int32) if x.dtype == np.float32 else x
+    return all(np.array_equal(bits(getattr(a, f)), bits(getattr(b, f)))
+               for f in ANSWER_FIELDS)
+
+
+def _check_trace_audit(r, n_leaves: int, label: str) -> dict:
+    """A traced and audited result's identities: the trace's accounting
+    residual zero for every query, the audit's for every leaf, the audit's
+    leaf sums equal to the trace's query sums for box, seed and filter,
+    and the residual histogram's mass equal to its count."""
+    t, a = r.trace, r.audit
+    n_q = r.dists.shape[0]
+    pruned = t["pruned_box"] + t["pruned_seed"] + t["pruned_filter"]
+    assert not (n_leaves - t["survivors"] - t["probed"] - pruned).any(), \
+        f"{label}: the trace's accounting residual is not zero"
+    assert not (n_q - a["kept"] - a["pruned_box"] - a["pruned_seed"]
+                - a["pruned_filter"]).any(), \
+        f"{label}: the audit's accounting residual is not zero"
+    for f in ("pruned_box", "pruned_seed", "pruned_filter"):
+        assert a[f].sum() == t[f].sum(), (label, f, a[f].sum(), t[f].sum())
+    assert (a["resid_buckets"].sum(-1) == a["resid_count"]).all(), label
+    return {f: int(t[f].sum()) for f in t}
+
+
+def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
+                    impls=(None,), label: str = "", reps: int = 5) -> dict:
+    """The cascade trace and the per-leaf filter audit through
+    ``LeaFiIndex.search`` (``search_batched(trace=True, audit=True)``) on
+    ``queries``, k = 1 and 5, exact and at 0.99, for each candidate pass
+    of ``impls`` (``pairwise`` at k = 5 only): each traced and audited
+    batch asserted bitwise equal to the untraced one in its answers and
+    counters, its trace's and audit's accounting residuals zero, the
+    audit's leaf sums the trace's query sums, the histogram's mass its
+    count; then each exact batch again with the bound ``bsf_ub`` = the
+    exact k-th distance x (1 + 1e-6) + 1e-6: bitwise the unbounded answer,
+    no more leaves searched, and (compact) seed prunes.  The launches are
+    read over the phase (the replay by instance: the bounded batches take
+    its bound instance, none its traced one).  Prints each batch's
+    counts and a traced and audited batch's median wall (``reps`` rounds,
+    in turns with the untraced one) beside the untraced one's."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    n_leaves = lfi.index.n_leaves
+    _zero_counters()
+    runs, n_bound = {}, 0
+    for impl in impls:
+        for k in ((1, 5) if impl is None else (5,)):
+            exact = None
+            for name, target in (("exact", None), ("0.99", 0.99)):
+                kw = dict(k=k, quality_target=target, device=device,
+                          dist_impl=impl)
+                plain = lfi.search(queries, **kw)
+                traced = lfi.search(queries, trace=True, audit=True, **kw)
+                tag = f"{label}trace impl={impl or 'default'} k={k} {name}"
+                assert plain.trace is None and plain.audit is None
+                assert _same_answers(plain, traced), \
+                    f"{tag}: trace and audit changed the answer"
+                sums = _check_trace_audit(traced, n_leaves, tag)
+                assert sums["pruned_seed"] == 0, (tag, sums)
+                runs[(impl, k, name)] = sums
+                if target is None:
+                    exact = plain
+                ub = (exact.dists[:, k - 1] * (1 + 1e-6) + 1e-6).astype(
+                    np.float32)
+                bounded = lfi.search(queries, bsf_ub=ub, trace=True,
+                                     audit=True, **kw)
+                n_bound += 1
+                bsums = _check_trace_audit(bounded, n_leaves, tag + " bound")
+                assert (bounded.searched <= plain.searched).all() or \
+                    target is not None, f"{tag}: the bound searched more"
+                if target is None:
+                    # the default pass's distances do not depend on which
+                    # other leaves a query keeps; the pairwise pass's union
+                    # (and on the CPU its matrix products' shapes) does
+                    same = np.array_equal(bounded.dists.view(np.int32),
+                                          exact.dists.view(np.int32))
+                    assert np.array_equal(bounded.ids, exact.ids) and (
+                        same or impl == "pairwise"), \
+                        f"{tag}: the bound changed the exact answer"
+                    np.testing.assert_allclose(bounded.dists, exact.dists,
+                                               rtol=1e-5, atol=1e-5)
+                    bsums["bitwise"] = same
+                    assert bsums["pruned_seed"] > 0, (tag, bsums)
+                runs[(impl, k, name, "bound")] = bsums
+                log(f"{tag}: trace sums {json.dumps(sums)}; searched "
+                    f"{plain.searched.mean():.2f}; with the bound: trace "
+                    f"sums {json.dumps(bsums)}, searched "
+                    f"{bounded.searched.mean():.2f}, computed "
+                    f"{bounded.computed.mean():.2f} (unbounded "
+                    f"{plain.computed.mean():.2f})")
+    launches, modes = _launch_counters(), _replay_mode_launches()
+    _check_launches(launches, _instance_launches(), TRACE_KERNELS,
+                    f"{label}trace-and-audit", on_card)
+    log(f"replay launches by instance on the {label}trace-and-audit path: "
+        + json.dumps(modes))
+    if on_card:
+        assert modes["bound"] == n_bound and modes["traced"] == 0, modes
+        assert modes["plain"] == 2 * len(runs) - 2 * n_bound, modes
+    walls: dict = {"untraced": [], "traced and audited": []}
+    for _ in range(reps):
+        for name, extra in (("untraced", {}),
+                            ("traced and audited",
+                             {"trace": True, "audit": True})):
+            _sync(device)
+            t0 = time.perf_counter()
+            lfi.search(queries, k=5, quality_target=0.99, device=device,
+                       **extra)
+            _sync(device)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    med = {n: float(np.median(v)) for n, v in walls.items()}
+    log(f"{label}trace and audit: a k=5, 0.99 batch of {len(queries)} "
+        f"queries, median of {reps} rounds in turns: untraced "
+        f"{med['untraced']:.2f} ms [runs "
+        f"{', '.join(f'{t:.2f}' for t in walls['untraced'])}], traced and "
+        f"audited {med['traced and audited']:.2f} ms [runs "
+        f"{', '.join(f'{t:.2f}' for t in walls['traced and audited'])}]")
+    return {"launches": launches, "replay_modes": modes, "wall_ms": med,
+            "runs": {" ".join(map(str, key)): v for key, v in runs.items()}}
+
+
 def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
                      main_shape: tuple = (256, 256, 256),
                      device: str = "cuda", captured: dict | None = None
@@ -1608,9 +1791,10 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
     Q, L = d_lb.shape
     replay_args, pass_args = [], []
     run_replay, run_pass = engine.replay_cascade, engine._bucket_leaf_topk
-    engine.replay_cascade = lambda *a: replay_args.append(a) or run_replay(*a)
-    engine._bucket_leaf_topk = \
-        lambda *a: (a[11] and pass_args.append(a)) or run_pass(*a)
+    engine.replay_cascade = lambda *a, **kw: (
+        replay_args.append((a, kw)) or run_replay(*a, **kw))
+    engine._bucket_leaf_topk = lambda *a, **kw: (
+        (a[11] and pass_args.append(a)) or run_pass(*a, **kw))
     try:
         engine.run_cascade(idx.series, idx.leaf_start, idx.leaf_size, q, d_lb,
                            d_F, k=k, max_leaf=idx.max_leaf_size)
@@ -1622,15 +1806,17 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
                         f"{target} batch's survivor pass)")
         # the replay alone at this batch's call: held, its chain, its time
         from repro_torch.kernels.replay import kernel as replay_kernel
-        args = replay_args[0]
+        args, kw = replay_args[0]
         args = args[:2] + tuple(t.contiguous() for t in args[2:5]) + args[5:]
         call = f"{label}replay (the k={k}, {target} batch's call)"
-        held = _hold_replay(args, call)
+        held = _hold_replay(args, call, **kw)
         _replay_timed_call(args)
         _replay_chain(args, call)
-        graph = _graph_ms(lambda: replay_kernel.replay_cascade_cuda(*args))
+        graph = _graph_ms(lambda: replay_kernel.replay_cascade_cuda(*args,
+                                                                    **kw))
         log(f"kernel {call} ({held['instance']}): {graph:.4f} ms replayed "
             "from a CUDA graph")
+        _replay_instance_times(args, call)
     layers = {
         "search": lambda: lfi.search(queries, k=k, quality_target=target,
                                      device=dev),
@@ -1640,7 +1826,8 @@ def search_breakdown(lfi, queries: np.ndarray, k: int = 5,
         "engine": lambda: engine.run_cascade(
             idx.series, idx.leaf_start, idx.leaf_size, q, d_lb, d_F, k=k,
             max_leaf=idx.max_leaf_size),
-        "replay": lambda: engine.replay_cascade(*replay_args[0]),
+        "replay": lambda: engine.replay_cascade(*replay_args[0][0],
+                                                **replay_args[0][1]),
         "candidate pass": lambda: engine._bucket_leaf_topk(*pass_args[0]),
     }
     times: dict = {name: [] for name in layers}
@@ -2623,24 +2810,98 @@ def _bitwise_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def _hold_replay(args, label: str) -> dict:
-    """One replay call, its five outputs each asserted bitwise equal to
-    the plain loop's."""
+def replay_bound(args):
+    """A (Q,) float32 bound for a held replay call (numpy seed 3): each
+    row's bound one of its own d_lb values, drawn, so that it lb-prunes
+    positions the bsf keeps (a seed prune) or not; +inf where the draw is
+    not finite and on every eighth row; NaN on the second row of a call
+    with more than 8 (nothing is then lb-pruned: ``torch.minimum``'s and
+    ``jnp.minimum``'s NaN)."""
     import torch
+    d_lb = args[2].cpu().numpy()
+    Q, L = d_lb.shape
+    rng = np.random.default_rng(3)
+    ub = d_lb[np.arange(Q), rng.integers(0, max(L, 1), Q)] if L else \
+        np.full(Q, np.inf)
+    ub = np.where(np.isfinite(ub), ub, np.inf).astype(np.float32)
+    ub[::8] = np.inf
+    if Q > 8:
+        ub[1] = np.nan
+    return torch.as_tensor(ub, device=args[2].device)
+
+
+#: the replay kernel's instances by their keywords (``kernel.mode``)
+REPLAY_MODES = (("bound", True, False), ("traced", False, True),
+                ("traced with a bound", True, True))
+
+
+def _hold_replay(args, label: str, bsf_ub=None, trace: bool = False,
+                 instances: bool = True) -> dict:
+    """One replay call as it was made (its bound and trace keywords too),
+    its outputs each asserted bitwise equal to the plain loop's; with
+    ``instances``, the same call also through the bound instance (a bound
+    from :func:`replay_bound`), the traced one and the traced one with
+    that bound, each bitwise equal to the plain loop's seven outputs (two
+    plain runs: traced without and with the bound)."""
+    import torch
+    from repro_torch.kernels.replay import kernel as replay_kernel
     kernel_fn, plain_fn, _ = _kernel_tables()
-    got = kernel_fn["replay"](*args)
-    torch.cuda.synchronize()
-    want = plain_fn["replay"](*args)
-    torch.cuda.synchronize()
-    same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
     shapes = (" x ".join(str(tuple(a.shape)) for a in args[:2])
               + f", k={args[5]}")
     which = _replay_instance(args)
-    log(f"kernel {label} at {shapes} ({which}): bitwise equal per output "
-        f"{same} (tolerance 0: {KERNELS['replay'][3]})")
-    assert len(got) == len(want) and all(same), f"{label} disagrees"
+    kw = {"bsf_ub": bsf_ub, "trace": trace}
+    held = [("as called", kw)]
+    if instances:
+        ub = replay_bound(args)
+        held += [(name, {"bsf_ub": ub if b else None, "trace": t})
+                 for name, b, t in REPLAY_MODES]
+    plain: dict = {}
+    for name, call_kw in held:
+        got = kernel_fn["replay"](*args, **call_kw)
+        torch.cuda.synchronize()
+        key = id(call_kw["bsf_ub"])
+        if key not in plain:
+            plain[key] = plain_fn["replay"](*args, bsf_ub=call_kw["bsf_ub"],
+                                            trace=True)
+            torch.cuda.synchronize()
+        want = plain[key][:len(got)]
+        same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
+        mode = replay_kernel.mode(call_kw["bsf_ub"], call_kw["trace"])
+        log(f"kernel {label} at {shapes} ({which}; {name}: the {mode} "
+            f"instance): bitwise equal per output {same} (tolerance 0: "
+            f"{KERNELS['replay'][3]})")
+        assert len(got) == len(want) and all(same), \
+            f"{label} ({name}) disagrees"
     return {"shapes": shapes, "instance": which, "max_abs_err": 0.0,
-            "tolerance": 0.0}
+            "tolerance": 0.0,
+            "instances_held": [name for name, _ in held]}
+
+
+def _replay_instance_times(args, label: str) -> dict:
+    """The replay's plain, bound and traced instances at one call, each
+    timed from a CUDA graph in turns (plain, bound, traced, traced with the
+    bound, then the same backwards), beside each one's bytes bound
+    (``ref.bound_bytes`` with the bound's prunes and the trace's two more
+    counters)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    from repro_torch.kernels.replay import ref as replay_ref
+    ub = replay_bound(args)
+    leaf_d, _, d_lb, d_F, order, k = args
+    modes = (("plain", None, False),) + tuple(
+        (name, ub if b else None, t) for name, b, t in REPLAY_MODES)
+    out = {name: {"graph_ms": [], "bound_ms": replay_ref.bound_bytes(
+        leaf_d, d_lb, d_F, order, k, bsf_ub=b, trace=t)
+        / roofline.H100.hbm_bw * 1e3} for name, b, t in modes}
+    for name, b, t in modes + modes[::-1]:
+        out[name]["graph_ms"].append(_graph_ms(
+            lambda b=b, t=t: replay_kernel.replay_cascade_cuda(
+                *args, bsf_ub=b, trace=t)))
+    log(f"kernel {label}: the replay's instances from a CUDA graph, in "
+        "turns (ms, first and second round; bound ms): " + "; ".join(
+            f"{name} [{v['graph_ms'][0]:.4f} / {v['graph_ms'][1]:.4f}] "
+            f"({v['bound_ms']:.5f})" for name, v in out.items()))
+    return out
 
 
 def _hold_early(args, label: str, quiet: bool = False) -> dict:
@@ -3523,7 +3784,10 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
         if name == "replay":
             _replay_timed_call(args)
             row.update(instance=res["instance"],
-                       chain=_replay_chain(args, "replay"))
+                       chain=_replay_chain(args, "replay"),
+                       instances=_replay_instance_times(
+                           args, "replay (the largest batch call)"),
+                       instances_held=res["instances_held"])
         if name == "replay" and "replay@calibration" in captured:
             cal = captured["replay@calibration"][1]
             label = "replay (calibration's largest call)"
@@ -3531,7 +3795,8 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
             row["calibration_call"] = {
                 "rows": cal[2].shape[0], "L": cal[2].shape[1],
                 **_check_call(name, cal, label, power),
-                "chain": _replay_chain(cal, label)}
+                "chain": _replay_chain(cal, label),
+                "instances": _replay_instance_times(cal, label)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
         if name == "early_walk":
@@ -3779,6 +4044,10 @@ def main() -> int:
     paths.append(phase("grouped", run_grouped, e2e["lfi"], e2e["queries"],
                        e2e["targets"], e2e["results"], device="cuda",
                        captured=captured)["launches"])
+    traced = [phase("dstree trace and audit", run_trace_audit, e2e["lfi"],
+                    e2e["queries"], device="cuda", impls=(None, "pairwise"),
+                    label="dstree ")]
+    paths.append(traced[-1]["launches"])
     n_filters = len(e2e["lfi"].leaf_ids)
     del e2e                               # the DSTree index leaves the card
     paths.append(phase("filter suite", run_filter_suite, n_filters,
@@ -3791,6 +4060,9 @@ def main() -> int:
           reps=3, label="isax ")
     phase("isax collect breakdown", collect_breakdown, isax["lfi"], "isax ")
     paths.append(isax["launches"])
+    traced.append(phase("isax trace and audit", run_trace_audit, isax["lfi"],
+                        isax["queries"], device="cuda", label="isax "))
+    paths.append(traced[-1]["launches"])
     paths.append(phase("isax search_early", run_early, isax["lfi"],
                        isax["queries"], {
                            ("default", k, t): isax["results"][
@@ -3804,6 +4076,17 @@ def main() -> int:
     launches = {name: sum(p.get(name, 0) for p in paths) for name in KERNELS}
     log("launches on all paths: " + json.dumps(launches))
     rows = phase("kernel checks", check_kernels, captured, launches, power)
+    # the replay's launches by instance: the bound and traced ones launch
+    # only in the trace-and-audit phases, the plain one everywhere else
+    bound = sum(t["replay_modes"]["bound"] for t in traced)
+    n_traced = sum(t["replay_modes"]["traced"] for t in traced)
+    for row in rows:
+        if row["name"] == "replay":
+            row["launches_by_instance"] = {
+                "plain": launches["replay"] - bound - n_traced,
+                "bound": bound, "traced": n_traced}
+            log("replay launches by instance on all paths: "
+                + json.dumps(row["launches_by_instance"]))
     log(f"phase wall times (s): {json.dumps(phases)}; script "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card)

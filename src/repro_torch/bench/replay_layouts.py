@@ -3,7 +3,9 @@
 ``csrc/replay.cu`` gives each row a block of a walker warp and seven
 producer warps.  This script builds, with ``--other PATH``, any other
 replay source with the same C entry (another block layout, the parent's
-source) into ``build/kernels/``, one nvcc each, beside the product.  It
+source; a source whose entry has no bound and no trace counters, as
+before they were added, is called without them) into ``build/kernels/``,
+one nvcc each, beside the product.  It
 builds the DSTree and the iSAX index of ``chip_smoke.py`` (RandWalk 1M x
 256, numpy seed 0, 256 queries, seed 42) and captures, on each,
 calibration's largest replay call during the build and the replay calls
@@ -61,6 +63,25 @@ def _registers(log: str) -> List[str]:
             if re.search(r"registers|spill stores", line)]
 
 
+#: the C entry's arguments before the bound and the trace's counters
+_OLD_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                  + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+
+
+def _signature(source: pathlib.Path) -> list:
+    """The argtypes of a source's ``replay`` entry: the product's, or the
+    one before the bound and the trace's counters."""
+    text = source.read_text()
+    params = re.search(r'extern "C" int replay\(([^)]*)\)', text).group(1)
+    n = len(params.split(","))
+    if n == len(_OLD_SIGNATURE):
+        return _OLD_SIGNATURE
+    if n != len(replay_kernel._SIGNATURES["replay"]):
+        raise ValueError(f"{source}: a replay entry of {n} arguments")
+    return replay_kernel._SIGNATURES["replay"]
+
+
 def build_copies(others=()) -> tuple:
     """The product and the other sources (named by their file's stem), one
     nvcc each, started together with the product libraries; returns
@@ -82,7 +103,8 @@ def build_copies(others=()) -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} copy:\n{log}")
         lib = ctypes.CDLL(str(out))
-        lib.replay.argtypes = replay_kernel._SIGNATURES["replay"]
+        lib.replay.argtypes = _signature(pathlib.Path(dict(
+            (pathlib.Path(o).stem, o) for o in others)[name]))
         lib.replay.restype = ctypes.c_int
         libs[name] = lib
         ptxas[name] = _registers(log)
@@ -98,10 +120,13 @@ def _call(lib: ctypes.CDLL, args: tuple) -> tuple:
     topk_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
     counts = torch.empty((3, Q), dtype=torch.int32, device=dev)
     ptr = common.ptr
+    old = len(lib.replay.argtypes) == len(_OLD_SIGNATURE)
     err = lib.replay(ptr(leaf_d), ptr(leaf_i), leaf_d.stride(0), ptr(d_lb),
-                     ptr(d_F), ptr(order), ptr(topk_d), ptr(topk_i),
-                     ptr(counts[0]), ptr(counts[1]), ptr(counts[2]), Q, L,
-                     kk, k, common.stream_ptr(leaf_d))
+                     ptr(d_F), ptr(order), *(() if old else (None,)),
+                     ptr(topk_d), ptr(topk_i), ptr(counts[0]),
+                     ptr(counts[1]), ptr(counts[2]),
+                     *(() if old else (None, None)), Q, L, kk, k,
+                     common.stream_ptr(leaf_d))
     common.check(err, "replay (scratch copy)")
     return topk_d, topk_i, counts[0], counts[1], counts[2]
 
@@ -124,9 +149,9 @@ def _replay_calls(backbone: str, series: np.ndarray, queries: np.ndarray,
     run = engine.replay_cascade
     got: list = []
 
-    def record(leaf_d, leaf_i, d_lb, d_F, order, k):
+    def record(leaf_d, leaf_i, d_lb, d_F, order, k, **kw):
         got.append((leaf_d, leaf_i, d_lb, d_F, order, k))
-        return run(leaf_d, leaf_i, d_lb, d_F, order, k)
+        return run(leaf_d, leaf_i, d_lb, d_F, order, k, **kw)
     engine.replay_cascade = record
     try:
         t0 = time.perf_counter()

@@ -39,6 +39,17 @@ makes the survivor mask a true superset.  ``strategy="scan"`` keeps its
 own loop over the positions (it scores every leaf; the oracle, not the
 main path).
 
+``run_cascade`` takes the reference's prune-only bound ``bsf_ub`` (the lb
+test against min(bsf, ub), never the filter test or the merge, so exact
+answers are bitwise those of an unbounded run) and its ``trace`` and
+``audit`` flags: a per-query :class:`~repro_torch.obs.trace.CascadeTrace`
+and a per-leaf :class:`~repro_torch.obs.audit.FilterAudit`, attributed at
+the stage where each prune happened (each scan position; the compact
+strategy's survivor mask), with answers and counters bitwise the same
+either way.  The compact strategy's trace is mask-stage, so its replay
+runs the kernel's untraced instance (with the bound where one is given);
+``replay_cascade(trace=True)`` gives the replay stage's own box/seed split.
+
 ``nn_distance_all_leaves`` / ``nn_distance_own_leaf`` are the build's
 training-target sweeps over padded leaf slabs, through the pairwise and slab
 CUDA kernels on the card.  Chunk widths target a larger working set than the
@@ -59,6 +70,9 @@ from ..kernels.leaf_topk import kernel as leaf_topk_kernel
 from ..kernels.leaf_topk import ref as leaf_topk_ref
 from ..kernels.replay import kernel as replay_kernel
 from ..kernels.replay import ref as replay_ref
+from ..obs import audit as obs_audit
+from ..obs.audit import AuditParts, FilterAudit
+from ..obs.trace import CascadeTrace
 
 _INF = float("inf")
 
@@ -76,6 +90,8 @@ class EngineResult:
     n_pruned_lb: torch.Tensor      # (Q,)
     n_pruned_filter: torch.Tensor  # (Q,)
     n_computed: torch.Tensor       # (Q,) leaves distance-computed (≥ n_searched)
+    trace: Optional[CascadeTrace] = None  # run_cascade(trace=True)
+    audit: Optional[FilterAudit] = None   # run_cascade(audit=True)
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +100,12 @@ class EngineResult:
 
 
 def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
-                  max_leaf):
+                  max_leaf, ub=None, trace=False, audit=False):
+    """The masked sequential cascade: (topk_d, topk_i, n_s, n_plb, n_pf),
+    then, with ``trace``, its CascadeTrace (box and seed split of each
+    position's lb test, the rows of every searched leaf) and, with
+    ``audit``, its AuditParts (each position's planes and the leaf's
+    nearest distance where searched, put in leaf order)."""
     Q, L = d_lb.shape
     dev = queries.device
     order = torch.argsort(d_lb, dim=1, stable=True)
@@ -94,10 +115,16 @@ def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
     topk_d, topk_i = replay_ref.init_topk(Q, k, dev)
     plb_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     pf_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
+    box_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
+    nn_hist = torch.full((L, Q), _INF, device=dev) if audit else None
+    n_rows = torch.zeros(Q, dtype=torch.int32, device=dev)
     for p in range(L):
         leaf = order[:, p]
         bsf = topk_d[:, -1]
-        p_lb = lb_ord[:, p] > bsf
+        p_box = lb_ord[:, p] > bsf
+        # ub tightens the lb test only; the filter test keeps the witnessed
+        # bsf, whose trajectory the conformal offsets were calibrated on
+        p_lb = p_box if ub is None else lb_ord[:, p] > torch.minimum(bsf, ub)
         p_f = ~p_lb & (dF_ord[:, p] > bsf)
         pruned = p_lb | p_f
         rows = leaf_start[leaf][:, None] + row_ids               # (Q, R)
@@ -108,7 +135,26 @@ def _scan_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
         topk_d, topk_i = replay_ref.merge_topk(topk_d, topk_i, d, rows, k)
         plb_hist[p] = p_lb
         pf_hist[p] = p_f
-    return replay_ref.counted(topk_d, topk_i, plb_hist, pf_hist)
+        box_hist[p] = p_box
+        if trace:
+            n_rows += torch.where(pruned, 0, leaf_size[leaf]).to(torch.int32)
+        if audit:
+            nn_hist[p] = d.amin(dim=1)
+    out = replay_ref.counted(topk_d, topk_i, plb_hist, pf_hist)
+    seed_hist = plb_hist & ~box_hist
+    if trace:
+        zeros = torch.zeros(Q, dtype=torch.int32, device=dev)
+        out += (CascadeTrace(box_hist.sum(dim=0, dtype=torch.int32),
+                             seed_hist.sum(dim=0, dtype=torch.int32), out[4],
+                             zeros, out[2], zeros, n_rows),)
+    if audit:
+        def leaf_order(hist):                  # (L, Q) visit order → (Q, L)
+            return torch.empty_like(hist.T).scatter_(1, order, hist.T)
+        kept = leaf_order(~(plb_hist | pf_hist))
+        out += (AuditParts(leaf_order(box_hist), leaf_order(seed_hist),
+                           leaf_order(pf_hist), kept, kept,
+                           leaf_order(nn_hist)),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -168,32 +214,40 @@ def _union_leaf_topk(series, leaf_start, leaf_size, queries_b, leaf_u, kk,
 
 def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    d_lb: torch.Tensor, d_F: torch.Tensor,
-                   order: torch.Tensor, k: int):
+                   order: torch.Tensor, k: int,
+                   bsf_ub: Optional[torch.Tensor] = None,
+                   trace: bool = False):
     """Exact sequential-cascade replay over per-leaf top-k summaries.
 
     leaf_d/leaf_i: (Q, L, kk) each leaf's kk smallest distances and row ids;
-    order: (Q, L) visit order.  Returns (topk_d (Q, k), topk_i (Q, k),
-    n_searched, n_pruned_lb, n_pruned_filter).  The one copy of the
-    cascade's decision logic: compact search runs it over gathered
+    order: (Q, L) visit order; bsf_ub: optional (Q,) prune-only bound (the
+    lb test against min(bsf, ub)).  Returns (topk_d (Q, k), topk_i (Q, k),
+    n_searched, n_pruned_lb, n_pruned_filter) and, with ``trace``, the
+    replay stage's (n_box, n_seed) split of n_pruned_lb.  The one copy of
+    the cascade's decision logic: compact search runs it over gathered
     candidate summaries, calibration (``conformal.simulate_search``) with
     k=1 over the precollected d_L matrices.  CUDA tensors go to the replay
-    kernel in one launch; CPU tensors to its plain version
-    (``kernels/replay/ref.py``), which it equals bitwise.
+    kernel in one launch (its plain, bound or traced instance); CPU
+    tensors to its plain version (``kernels/replay/ref.py``), which it
+    equals bitwise.
     """
     if on_cpu(leaf_d, leaf_i, d_lb, d_F, order):
-        return replay_ref.replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k)
+        return replay_ref.replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k,
+                                         bsf_ub=bsf_ub, trace=trace)
     return replay_kernel.replay_cascade_cuda(
         leaf_d, leaf_i, d_lb.contiguous(), d_F.contiguous(),
-        order.contiguous(), k)
+        order.contiguous(), k, bsf_ub=bsf_ub, trace=trace)
 
 
 def _union_pass(series, leaf_start, leaf_size, queries, leaves, counts, kk,
-                max_leaf, leaf_d, leaf_i):
+                max_leaf, leaf_d, leaf_i, dist_rows=None, probe_rows=None):
     """``dist_impl="pairwise"``: per survivor-count bucket, the union of its
     queries' survivors scored all-pairs by the pairwise kernel and written
     to the summaries.  Leaves that are not a query's survivors ride along
     but are pruned by its replay (their d_lb/d_F exceed its bsf0, and bsf
-    only decreases).  Returns the leaves computed per query (Q,) int32."""
+    only decreases).  Returns the leaves computed per query (Q,) int32.
+    Given the trace's ``dist_rows`` (Q,), a bucket's queries get their
+    probe's rows (``probe_rows``) and the whole union's there."""
     Q, m = queries.shape
     L = leaf_start.shape[0]
     dev = queries.device
@@ -211,6 +265,9 @@ def _union_pass(series, leaf_start, leaf_size, queries, leaves, counts, kk,
         chunk = pow2_chunk((max_leaf * m + len(qis) * max_leaf) * 4,
                            next_pow2(uni.size), budget)
         leaf_u = torch.as_tensor(uni, device=dev)
+        if dist_rows is not None:
+            dist_rows[qidx] = probe_rows[qidx] + leaf_size[leaf_u].sum().to(
+                torch.int32)
         vals, ids = _union_leaf_topk(series, leaf_start, leaf_size,
                                      queries[qidx], leaf_u, kk, max_leaf,
                                      chunk)
@@ -219,8 +276,49 @@ def _union_pass(series, leaf_start, leaf_size, queries, leaves, counts, kk,
     return torch.as_tensor(computed, device=dev)
 
 
+def _mask_partition(mask, d_lb, bsf0, bsf0m):
+    """The compact strategy's non-survivors split by the first bound that
+    excluded them: box (d_lb > bsf0), seed (only min(bsf0, ub) excluded
+    it), filter (the rest: d_F > bsf0).  Three (Q, L) bool planes."""
+    not_m = ~mask
+    p_box = not_m & (d_lb > bsf0[:, None])
+    p_seed = not_m & ~p_box & (d_lb > bsf0m[:, None])
+    return p_box, p_seed, not_m & ~p_box & ~p_seed
+
+
+def _compact_trace_stats(mask, d_lb, bsf0, bsf0m, leaf_size, leaf0):
+    """The compact strategy's mask-stage CascadeTrace: the partition of
+    :func:`_mask_partition`, the probe in ``probed``, and the rows paid:
+    the probe's and every survivor's (the probe leaf is scored again in
+    the pass)."""
+    Q = mask.shape[0]
+    p_box, p_seed, p_filt = _mask_partition(mask, d_lb, bsf0, bsf0m)
+    sizes = leaf_size.to(torch.int32)
+    dist_rows = (sizes[leaf0[:, 0]]
+                 + torch.where(mask, sizes[None, :], 0).sum(dim=1,
+                                                            dtype=torch.int32))
+    return CascadeTrace(
+        pruned_box=p_box.sum(dim=1, dtype=torch.int32),
+        pruned_seed=p_seed.sum(dim=1, dtype=torch.int32),
+        pruned_filter=p_filt.sum(dim=1, dtype=torch.int32),
+        probed=torch.ones(Q, dtype=torch.int32, device=mask.device),
+        survivors=mask.sum(dim=1, dtype=torch.int32) - 1,
+        overflow=torch.zeros(Q, dtype=torch.int32, device=mask.device),
+        distances=dist_rows)
+
+
+def _compact_audit_parts(mask, d_lb, bsf0, bsf0m, leaf_nn):
+    """The compact strategy's audit planes: the partition of
+    :func:`_mask_partition`, ``kept`` the survivor mask (the probe leaf
+    included), ``scored`` every leaf with a finite summary (``kept`` for
+    the per-query passes, a superset under the pairwise union)."""
+    return AuditParts(*_mask_partition(mask, d_lb, bsf0, bsf0m), mask,
+                      torch.isfinite(leaf_nn), leaf_nn)
+
+
 def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
-                     max_leaf, dist_impl):
+                     max_leaf, dist_impl, bsf_ub=None, trace=False,
+                     audit=False):
     Q = queries.shape[0]
     L = leaf_start.shape[0]
     dev = queries.device
@@ -237,9 +335,15 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
                       max_leaf, probe_impl, p_vals, p_ids, False)
     bsf0 = (p_vals[:, 0, k - 1] if k <= kk
             else torch.full((Q,), _INF, device=dev))
-    mask = (d_lb <= bsf0[:, None]) & (d_F <= bsf0[:, None])
+    # the replay's lb threshold never exceeds min(bsf0, ub) after its first
+    # merge, so masking d_lb against it keeps the superset; d_F masks
+    # against bsf0 alone, as the replay's filter test never sees ub
+    bsf0m = bsf0 if bsf_ub is None else torch.minimum(bsf0, bsf_ub)
+    mask = (d_lb <= bsf0m[:, None]) & (d_F <= bsf0[:, None])
     ar = torch.arange(Q, device=dev)
     mask[ar, leaf0[:, 0]] = True
+    aux = (_compact_trace_stats(mask, d_lb, bsf0, bsf0m, leaf_size, leaf0)
+           if trace else None)
 
     # -- phase 2: score every query's survivors -----------------------------
     leaves, counts = survivor_lists(mask, order)
@@ -248,8 +352,13 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
     leaf_d = torch.full((Q, L + 1, kk), _INF, device=dev)
     leaf_i = torch.full((Q, L + 1, kk), -1, dtype=torch.int64, device=dev)
     if dist_impl == "pairwise":
-        computed = _union_pass(series, leaf_start, leaf_size, queries, leaves,
-                               counts, kk, max_leaf, leaf_d, leaf_i)
+        union_rows = None if aux is None else aux.distances.clone()
+        computed = _union_pass(
+            series, leaf_start, leaf_size, queries, leaves, counts, kk,
+            max_leaf, leaf_d, leaf_i, union_rows,
+            None if aux is None else leaf_size.to(torch.int32)[leaf0[:, 0]])
+        if aux is not None:
+            aux = aux._replace(distances=union_rows)
     else:
         _bucket_leaf_topk(series, leaf_start, leaf_size, queries, leaves,
                           counts, kk, max_leaf, dist_impl, leaf_d, leaf_i,
@@ -262,15 +371,24 @@ def _compact_cascade(series, leaf_start, leaf_size, queries, d_lb, d_F, k,
     leaf_i[ar, leaf0[:, 0]] = p_ids[:, 0]
 
     # -- phase 3: exact cascade replay over the per-leaf summaries ----------
-    out = replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k)
-    return out + (computed,)
+    out = replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k, bsf_ub=bsf_ub)
+    out += (computed,)
+    if trace:
+        out += (aux,)
+    if audit:
+        # slot 0 is each scored leaf's exact nearest distance (the probe
+        # leaf's written verbatim above), +inf where never scored
+        out += (_compact_audit_parts(mask, d_lb, bsf0, bsf0m,
+                                     leaf_d[:, :, 0]),)
+    return out
 
 
 def run_cascade(series: torch.Tensor, leaf_start: torch.Tensor,
                 leaf_size: torch.Tensor, queries: torch.Tensor,
                 d_lb: torch.Tensor, d_F: torch.Tensor, *, k: int,
                 max_leaf: int, strategy: str = "auto",
-                dist_impl: Optional[str] = None) -> EngineResult:
+                dist_impl: Optional[str] = None, bsf_ub=None,
+                trace: bool = False, audit: bool = False) -> EngineResult:
     """Batched top-k leaf-cascade search over precomputed pruning inputs.
 
     series (n + max_leaf, m) leaf-sorted and padded; leaf_start/leaf_size
@@ -278,22 +396,39 @@ def run_cascade(series: torch.Tensor, leaf_start: torch.Tensor,
     filter predictions (−inf never prunes).  strategy: "compact" (default
     via "auto") or "scan".  dist_impl: "direct" | "matmul" | "pairwise" |
     None (``matmul`` on the card, ``direct`` on the CPU).
+
+    bsf_ub: optional (Q,) prune-only upper bound on each query's true k-th
+    nearest distance.  It tightens the lower-bound prune to min(bsf, ub)
+    and never enters the filter test (the conformal offsets are calibrated
+    on the unbounded bsf) or the merge: exact answers are bitwise those of
+    an unbounded run, and only ``searched``/``computed`` shrink; +inf
+    entries change nothing.  trace: also return a per-query
+    :class:`~repro_torch.obs.trace.CascadeTrace` on ``.trace``.  audit:
+    also return a per-leaf :class:`~repro_torch.obs.audit.FilterAudit` on
+    ``.audit``.  Answers and counters are bitwise the same with either
+    flag on or off (``repro_torch.obs`` gives their semantics).
     """
     if strategy == "auto":
         strategy = "compact"
+    ub = (None if bsf_ub is None else torch.as_tensor(
+        bsf_ub, dtype=torch.float32, device=queries.device).contiguous())
     if strategy == "scan":
-        td, ti, n_s, n_plb, n_pf = _scan_cascade(
-            series, leaf_start, leaf_size, queries, d_lb, d_F, k, max_leaf)
+        out = _scan_cascade(series, leaf_start, leaf_size, queries, d_lb,
+                            d_F, k, max_leaf, ub, trace, audit)
         n_c = torch.full((queries.shape[0],), leaf_start.shape[0],
                          dtype=torch.int32, device=queries.device)
+        out = out[:5] + (n_c,) + out[5:]
     elif strategy == "compact":
         dist_impl = dist_impl or l2_ops.default_gathered_impl(queries.device)
-        td, ti, n_s, n_plb, n_pf, n_c = _compact_cascade(
-            series, leaf_start, leaf_size, queries, d_lb, d_F, k, max_leaf,
-            dist_impl)
+        out = _compact_cascade(series, leaf_start, leaf_size, queries, d_lb,
+                               d_F, k, max_leaf, dist_impl, ub, trace, audit)
     else:
         raise ValueError(f"unknown engine strategy {strategy!r}")
-    return EngineResult(td, ti, n_s, n_plb, n_pf, n_c)
+    rest = list(out[6:])
+    aux = rest.pop(0) if trace else None
+    fa = (obs_audit.reduce_parts(rest.pop(0), d_F, leaf_size) if audit
+          else None)
+    return EngineResult(*out[:6], aux, fa)
 
 
 # ---------------------------------------------------------------------------

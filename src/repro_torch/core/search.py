@@ -18,7 +18,9 @@ Three forms over the same semantics:
   host in one copy at the end.
 
 ``quality_target=None`` (or ``use_filters=False``) disables the filters and
-the search is exact.
+the search is exact.  The batched forms take the engine's prune-only bound
+``bsf_ub`` and its ``trace`` and ``audit`` flags; the result then carries
+the trace and the audit as numpy dicts with the reference's field names.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from ..kernels import common
 from ..kernels.common import Device, resolve_device
 from ..kernels.early_walk import kernel as walk_kernel
 from ..kernels.early_walk import ref as walk_ref
+from ..obs.audit import FilterAudit
+from ..obs.trace import CascadeTrace
 
 _INF = float("inf")
 
@@ -51,6 +55,12 @@ class SearchResult:
     # strategy; the survivor superset, or the bucket's survivor union under
     # dist_impl="pairwise", on the compact strategy)
     computed: Optional[np.ndarray] = None
+    # search_batched(trace=True): the engine's per-query CascadeTrace as a
+    # dict of int64 (Q,) arrays by field name, else None
+    trace: Optional[dict] = None
+    # search_batched(audit=True): the engine's per-leaf FilterAudit as a
+    # dict by field name (counters int64, sums and minimum float32)
+    audit: Optional[dict] = None
 
     @property
     def pruning_ratio(self) -> np.ndarray:
@@ -62,7 +72,8 @@ class PendingSearch:
     """A dispatched batched search whose device work may still be running.
 
     ``done`` is a CUDA event recorded after the engine's last launch (None
-    on the CPU); :meth:`result` waits on it and copies to the host.
+    on the CPU); :meth:`result` waits on it and copies to the host.  The
+    trace and the audit, where asked for, come over in one copy each.
     """
     raw: engine.EngineResult
     order: np.ndarray
@@ -87,7 +98,35 @@ class PendingSearch:
             searched=r.n_searched.cpu().numpy(),
             pruned_lb=r.n_pruned_lb.cpu().numpy(),
             pruned_filter=r.n_pruned_filter.cpu().numpy(),
-            n_leaves=self.n_leaves, computed=r.n_computed.cpu().numpy())
+            n_leaves=self.n_leaves, computed=r.n_computed.cpu().numpy(),
+            trace=None if r.trace is None else _trace_to_host(r.trace),
+            audit=None if r.audit is None else _audit_to_host(r.audit))
+
+
+def _trace_to_host(trace: CascadeTrace) -> dict:
+    """The trace's seven (Q,) fields, stacked and copied in one copy."""
+    host = torch.stack(tuple(trace)).cpu().numpy().astype(np.int64)
+    return dict(zip(CascadeTrace._fields, host))
+
+
+#: the audit's float32 fields, carried through the one copy as their bits
+_AUDIT_FLOATS = ("resid_sum", "resid_sumsq", "resid_min")
+
+
+def _audit_to_host(audit: FilterAudit) -> dict:
+    """The audit's fields packed into one int32 tensor (the float32 ones
+    by their bits), copied in one copy and unpacked by field."""
+    parts = [(val.view(torch.int32) if name in _AUDIT_FLOATS
+              else val.to(torch.int32)).reshape(-1)
+             for name, val in zip(FilterAudit._fields, audit)]
+    host = torch.cat(parts).cpu().numpy()
+    out, at = {}, 0
+    for name, val in zip(FilterAudit._fields, audit):
+        piece = host[at:at + val.numel()].reshape(tuple(val.shape))
+        at += val.numel()
+        out[name] = (piece.view(np.float32) if name in _AUDIT_FLOATS
+                     else piece.astype(np.int64))
+    return out
 
 
 def predictions_for_all_leaves(index: FlatIndex,
@@ -148,6 +187,8 @@ def search_batched_async(index: FlatIndex, queries, *, k: int = 1,
                          quality_target=None, use_filters: bool = True,
                          filter_type: str = "mlp", strategy: str = "auto",
                          dist_impl: Optional[str] = None,
+                         bsf_ub: Optional[np.ndarray] = None,
+                         trace: bool = False, audit: bool = False,
                          device: Device = None) -> PendingSearch:
     """Dispatch a batched LeaFi search; same arguments as
     :func:`search_batched`.  The compact strategy syncs the host once for
@@ -171,7 +212,7 @@ def search_batched_async(index: FlatIndex, queries, *, k: int = 1,
     res = engine.run_cascade(
         index.series, index.leaf_start, index.leaf_size, q, d_lb, d_F,
         k=k, max_leaf=index.max_leaf_size, strategy=strategy,
-        dist_impl=dist_impl)
+        dist_impl=dist_impl, bsf_ub=bsf_ub, trace=trace, audit=audit)
     done = None
     if dev.type == "cuda":
         done = torch.cuda.Event()
@@ -187,6 +228,8 @@ def search_batched(index: FlatIndex, queries, *, k: int = 1,
                    quality_target=None, use_filters: bool = True,
                    filter_type: str = "mlp", strategy: str = "auto",
                    dist_impl: Optional[str] = None,
+                   bsf_ub: Optional[np.ndarray] = None, trace: bool = False,
+                   audit: bool = False,
                    device: Device = None) -> SearchResult:
     """Batched LeaFi search; exact when filters are disabled.
 
@@ -195,14 +238,19 @@ def search_batched(index: FlatIndex, queries, *, k: int = 1,
     ("mlp", "cnn" or "rnn") names the backbone of ``filter_params``.
     ``strategy`` is
     "compact" (the "auto" default) or "scan"; ``dist_impl`` selects the
-    candidate pass (see :func:`engine.run_cascade`).  ``device=None`` means
-    the card; the index must live there.
+    candidate pass (see :func:`engine.run_cascade`).  ``bsf_ub`` is an
+    optional (Q,) prune-only upper bound on each query's true k-th nearest
+    distance: it prunes more leaves and never changes an exact answer.
+    ``trace`` and ``audit`` put the engine's per-query ``CascadeTrace`` and
+    per-leaf ``FilterAudit`` on the result as numpy dicts; the answers stay
+    bitwise the same.  ``device=None`` means the card; the index must live
+    there.
     """
     return search_batched_async(
         index, queries, k=k, filter_params=filter_params, leaf_ids=leaf_ids,
         tuner=tuner, quality_target=quality_target, use_filters=use_filters,
         filter_type=filter_type, strategy=strategy, dist_impl=dist_impl,
-        device=device).result()
+        bsf_ub=bsf_ub, trace=trace, audit=audit, device=device).result()
 
 
 def search_batched_grouped(index: FlatIndex, queries,

@@ -78,6 +78,23 @@
 //     output buffer beyond: TopK in warp_topk.cuh.
 //   * Counters: the producers' drops and the walker's lb-pruned entries are
 //     n_plb, its filter-pruned entries n_pf, n_s = L - n_plb - n_pf.
+//   * The prune-only bound bsf_ub (Q,), where given (engine.py:665
+//     run_cascade's, :346 in the replay): the lb test is d_lb > min(bsf,
+//     ub), the minimum NaN if ub is (PTX min.NaN, as jnp.minimum); the
+//     filter test, the vmin < bsf entry tests and the merge keep the
+//     witnessed bsf.  bsf never rises and ub is fixed, so the producers'
+//     drop at min(bsf_a, ub) stays certain.
+//   * The trace (n_box, n_seed, where given): the lb-pruned split into box
+//     (d_lb > bsf) and seed (lb-pruned, not box).  A producer then drops
+//     only where d_lb > bsf_a too (a box prune for certain: the bsf at the
+//     position is <= bsf_a); a position with ub < d_lb <= bsf_a is
+//     lb-pruned for certain but box or seed by the bsf at its turn, so it
+//     enters the ring (its prediction unread) and the walker classifies
+//     it.  ring.dropped then counts box prunes only.
+//   * Three instances a (k, kk) instance (MODE): PLAIN (no bound, no
+//     trace: the batches' and calibration's, the code of the design above,
+//     its walker unchanged: walk), BOUND (a bound) and TRACED (the
+//     counters, and a bound or +inf), whose walker is walk_bound.
 //   * A wait past ~10 s of clock traps (a launch failure, not a hung card).
 //   ref.py's replay_chunked emulates this walk for the CPU tests, with a
 //   pre-test bsf that lags by a given number of chunks and a ring of a
@@ -100,6 +117,8 @@ constexpr int PRE = 8;                   // leaf slots an entry carries
 constexpr int PRODUCERS = 7;             // producer warps beside the walker
 constexpr int THREADS = (1 + PRODUCERS) * 32;   // a block: one row
 constexpr int MIN_BLOCKS = 2;            // blocks an SM: 128 registers
+// instances: no bound and no trace; a bound; the trace (and a bound)
+constexpr int PLAIN = 0, BOUND = 1, TRACED = 2;
 
 // a producer step: 32-position chunks (2 while an entry carries 8 slots,
 // for the registers they take; 4 beyond) and positions
@@ -178,6 +197,22 @@ __device__ __forceinline__ void st_relaxed(float* p, float v) {
                    hopper::smem_u32(p)),
                "f"(v)
                : "memory");
+}
+
+// min(a, b), NaN if either is (jnp.minimum's and torch.minimum's rule)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// the lb test's threshold at a bsf: the bsf itself, or min(bsf, ub)
+template <int MODE>
+__device__ __forceinline__ float lb_thr(float bsf, float ub) {
+  if constexpr (MODE == PLAIN)
+    return bsf;
+  else
+    return min_nan(bsf, ub);
 }
 
 // a spin-wait past ~10 s of clock traps: a fault in the pipeline is then
@@ -291,13 +326,85 @@ __device__ __forceinline__ int2 walk(Ring<NS>& ring, TopK<REG>& top,
   return make_int2(plb, pf);
 }
 
+// the walker of the BOUND and TRACED instances: walk's steps with the lb
+// tests against min(bsf, ub) and, TRACED, the box/seed split; returns
+// (lb-pruned, filter-pruned, box, seed).  The PLAIN instance keeps walk
+// as it was before the bound and the trace: one walker for all three
+// instances compiled the plain one 3-5% slower at the batches' and
+// calibration's calls (another ptxas schedule of the same tests;
+// bench/replay_layouts.py beside the earlier source)
+template <bool REG, int NS, int MODE>
+__device__ __forceinline__ int4 walk_bound(Ring<NS>& ring, TopK<REG>& top,
+                                     const float* __restrict__ ldr,
+                                     const long long* __restrict__ lir,
+                                     float ub, int kk, int n_steps,
+                                     int lane) {
+  int head = 0, plb = 0, pf = 0, box = 0, seed = 0;
+  Patience idle;
+  while (true) {
+    const unsigned long long posted = ld_acquire(&ring.posted);
+    const int tail = static_cast<int>(posted & 0xffffffffu);
+    if (tail == head) {
+      if (static_cast<int>(posted >> 32) == n_steps) break;
+      idle.check();
+      continue;
+    }
+    idle.start = -1;
+    const int n = min(tail - head, 32);
+    const bool valid = lane < n;
+    const int e = (head + lane) & (RING - 1);
+    float lb = 0.f, f = 0.f, vmin = INFINITY;
+    if (valid) {
+      lb = ring.lb[e];
+      f = ring.f[e];
+      vmin = ring.vmin[e];
+    }
+    const float bsf0 = top.bsf;
+    const bool cand =
+        valid && !(lb > lb_thr<MODE>(bsf0, ub)) && !(f > bsf0);
+    unsigned go = __ballot_sync(FULL, cand && vmin < bsf0);
+    float seen = bsf0;                   // the bsf just before this entry
+    while (go) {
+      const int j = __ffs(go) - 1;
+      go &= go - 1;
+      const float lbj = __shfl_sync(FULL, lb, j);
+      const float fj = __shfl_sync(FULL, f, j);
+      if (!(lbj > lb_thr<MODE>(top.bsf, ub)) && !(fj > top.bsf)) {
+        const int ej = (head + j) & (RING - 1);
+        if constexpr (NS > 0) {
+          merge_ring<REG, NS>(top, ring, ej, kk);
+        } else {
+          const long long oj = ring.o[ej];
+          merge_leaf<REG>(top, ldr + oj * kk, lir + oj * kk, kk, lane);
+        }
+      }
+      if (lane > j) seen = top.bsf;
+    }
+    const bool p_lb = valid && lb > lb_thr<MODE>(seen, ub);
+    plb += __popc(__ballot_sync(FULL, p_lb));
+    pf += __popc(__ballot_sync(FULL, valid && !p_lb && f > seen));
+    if constexpr (MODE == TRACED) {
+      const bool p_box = valid && lb > seen;
+      box += __popc(__ballot_sync(FULL, p_box));
+      seed += __popc(__ballot_sync(FULL, p_lb && !p_box));
+    }
+    head += n;
+    __syncwarp();
+    if (lane == 0) {
+      st_relaxed(&ring.bsf, top.bsf);
+      st_release(&ring.head, head);
+    }
+  }
+  return make_int4(plb, pf, box, seed);
+}
+
 // producer `first` of `producers`: steps first, first + producers, ...
-template <int NS>
+template <int NS, int MODE>
 __device__ __forceinline__ void produce(
     Ring<NS>& ring, const long long* __restrict__ ord,
     const float* __restrict__ lbr, const float* __restrict__ fr,
-    const float* __restrict__ ldr, const long long* __restrict__ lir, int L,
-    int kk, int first, int n_steps, int lane) {
+    const float* __restrict__ ldr, const long long* __restrict__ lir,
+    float ub, int L, int kk, int first, int n_steps, int lane) {
   constexpr int C = SUB<NS>, S = NS > 0 ? NS : 1;
   long long next[C];
   auto fetch = [&](int s) {
@@ -321,14 +428,16 @@ __device__ __forceinline__ void produce(
     if (s + PRODUCERS < n_steps) fetch(s + PRODUCERS);
 #pragma unroll
     for (int c = 0; c < C; ++c) lb[c] = ok[c] ? __ldg(lbr + o[c]) : 0.f;
-    // the pre-test, against the walker's newest bsf: a bound above it is
-    // lb-pruned for certain, and its prediction is never read
+    // the pre-test, against the walker's newest bsf: a bound above it (or
+    // above the bound ub) is lb-pruned for certain, and its prediction is
+    // never read
     const float bsf_a = ld_relaxed(&ring.bsf);
+    const float thr_a = lb_thr<MODE>(bsf_a, ub);
     bool need[C], cand[C], enter[C];
     bool any = false;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      need[c] = ok[c] && !(lb[c] > bsf_a);
+      need[c] = ok[c] && !(lb[c] > thr_a);
       any |= need[c];
       f[c] = 0.f;
     }
@@ -374,14 +483,18 @@ __device__ __forceinline__ void produce(
         }
       }
     }
-    // kept: not lb-pruned for certain at the newest bsf; each kept lane's
-    // place among the step's entries is known before its turn
+    // kept: not lb-pruned for certain at the newest bsf (TRACED: not box-
+    // pruned for certain); each kept lane's place among the step's entries
+    // is known before its turn
     const float bsf_c = ld_relaxed(&ring.bsf);
+    const float thr_c = lb_thr<MODE>(bsf_c, ub);
     unsigned kept[C];
     int n = 0;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      kept[c] = __ballot_sync(FULL, ok[c] && !(lb[c] > bsf_c));
+      const bool drop =
+          lb[c] > thr_c && (MODE != TRACED || lb[c] > bsf_c);
+      kept[c] = __ballot_sync(FULL, ok[c] && !drop);
       dropped += __popc(__ballot_sync(FULL, ok[c])) - __popc(kept[c]);
       n += __popc(kept[c]);
     }
@@ -428,15 +541,17 @@ __device__ __forceinline__ void produce(
   if (lane == 0 && dropped) atomicAdd(&ring.dropped, dropped);
 }
 
-template <bool REG, int NS>
+template <bool REG, int NS, int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 replay_kernel(const float* __restrict__ leaf_d,
               const long long* __restrict__ leaf_i, long long row_stride,
               const float* __restrict__ d_lb, const float* __restrict__ d_F,
-              const long long* __restrict__ order, float* topk_d,
+              const long long* __restrict__ order,
+              const float* __restrict__ bsf_ub, float* topk_d,
               long long* topk_i, int* __restrict__ n_s,
-              int* __restrict__ n_plb, int* __restrict__ n_pf, int Q, int L,
-              int kk, int k) {
+              int* __restrict__ n_plb, int* __restrict__ n_pf,
+              int* __restrict__ n_box, int* __restrict__ n_seed, int Q,
+              int L, int kk, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Ring<NS>& ring = *reinterpret_cast<Ring<NS>*>(smem);
@@ -451,15 +566,25 @@ replay_kernel(const float* __restrict__ leaf_d,
   const long long* ord = order + (long long)r * L;
   const float* ldr = leaf_d + r * row_stride;
   const long long* lir = leaf_i + r * row_stride;
-  int2 pruned = make_int2(0, 0);
+  // the row's bound: +inf without one (TRACED may have none)
+  const float ub =
+      MODE != PLAIN && bsf_ub != nullptr ? __ldg(bsf_ub + r) : INFINITY;
+  int4 pruned = make_int4(0, 0, 0, 0);
   if (warp > 0) {
-    produce<NS>(ring, ord, d_lb + (long long)r * L, d_F + (long long)r * L,
-                ldr, lir, L, kk, warp - 1, n_steps, lane);
+    produce<NS, MODE>(ring, ord, d_lb + (long long)r * L,
+                      d_F + (long long)r * L, ldr, lir, ub, L, kk, warp - 1,
+                      n_steps, lane);
   } else {
     float* td = topk_d + (long long)r * k;
     long long* ti = topk_i + (long long)r * k;
     TopK<REG> top(td, ti, k, lane);
-    pruned = walk<REG, NS>(ring, top, ldr, lir, kk, n_steps, lane);
+    if constexpr (MODE == PLAIN) {
+      const int2 p = walk<REG, NS>(ring, top, ldr, lir, kk, n_steps, lane);
+      pruned = make_int4(p.x, p.y, 0, 0);
+    } else {
+      pruned = walk_bound<REG, NS, MODE>(ring, top, ldr, lir, ub, kk,
+                                         n_steps, lane);
+    }
     top.store(td, ti);
   }
   __syncthreads();                                  // the drops are in
@@ -468,6 +593,10 @@ replay_kernel(const float* __restrict__ leaf_d,
     n_plb[r] = plb;
     n_pf[r] = pruned.y;
     n_s[r] = L - plb - pruned.y;
+    if constexpr (MODE == TRACED) {
+      n_box[r] = pruned.z + ring.dropped;           // every drop is a box
+      n_seed[r] = pruned.w;
+    }
   }
 }
 
@@ -478,16 +607,18 @@ struct Args {
   const float* lb;
   const float* f;
   const long long* o;
+  const float* ub;                       // null: no bound
   float* td;
   long long* ti;
   int *s, *plb, *pf;
+  int *box, *seed;                       // null: no trace
   int Q, L, kk, k;
 };
 
-template <bool REG, int NS>
-cudaError_t launch(const Args& a, cudaStream_t st) {
+template <bool REG, int NS, int MODE>
+cudaError_t launch_mode(const Args& a, cudaStream_t st) {
   const size_t smem = sizeof(Ring<NS>);
-  auto* kern = replay_kernel<REG, NS>;
+  auto* kern = replay_kernel<REG, NS, MODE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -495,9 +626,17 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
     if (err != cudaSuccess) return err;
   }
   kern<<<a.Q, THREADS, smem, st>>>(a.ld, a.li, a.row_stride, a.lb, a.f,
-                                      a.o, a.td, a.ti, a.s, a.plb, a.pf, a.Q,
-                                      a.L, a.kk, a.k);
+                                      a.o, a.ub, a.td, a.ti, a.s, a.plb,
+                                      a.pf, a.box, a.seed, a.Q, a.L, a.kk,
+                                      a.k);
   return cudaGetLastError();
+}
+
+template <bool REG, int NS>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  if (a.box) return launch_mode<REG, NS, TRACED>(a, st);
+  if (a.ub) return launch_mode<REG, NS, BOUND>(a, st);
+  return launch_mode<REG, NS, PLAIN>(a, st);
 }
 
 template <bool REG>
@@ -511,27 +650,33 @@ cudaError_t launch_kk(const Args& a, cudaStream_t st) {
 
 // leaf_d (Q, L, kk) float32 and leaf_i (Q, L, kk) int64, rows row_stride
 // elements apart, each row's (L, kk) block contiguous; d_lb, d_F (Q, L)
-// float32 and order (Q, L) int64, contiguous, order's entries in [0, L)
-// -> topk_d (Q, k) float32, topk_i (Q, k) int64, n_s, n_plb, n_pf (Q,)
-// int32.
+// float32 and order (Q, L) int64, contiguous, order's entries in [0, L);
+// bsf_ub (Q,) float32 or null -> topk_d (Q, k) float32, topk_i (Q, k)
+// int64, n_s, n_plb, n_pf (Q,) int32, and n_box, n_seed (Q,) int32 where
+// both are given (both null: no trace).
 extern "C" int replay(const void* leaf_d, const void* leaf_i,
                       long long row_stride, const void* d_lb,
-                      const void* d_F, const void* order, void* topk_d,
-                      void* topk_i, void* n_s, void* n_plb, void* n_pf,
-                      int Q, int L, int kk, int k, void* stream) {
+                      const void* d_F, const void* order, const void* bsf_ub,
+                      void* topk_d, void* topk_i, void* n_s, void* n_plb,
+                      void* n_pf, void* n_box, void* n_seed, int Q, int L,
+                      int kk, int k, void* stream) {
   if (Q <= 0) return cudaGetLastError();
-  if (k <= 0 || L < 0 || kk < 0) return cudaErrorInvalidValue;
+  if (k <= 0 || L < 0 || kk < 0 || (n_box == nullptr) != (n_seed == nullptr))
+    return cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(leaf_d),
                static_cast<const long long*>(leaf_i),
                row_stride,
                static_cast<const float*>(d_lb),
                static_cast<const float*>(d_F),
                static_cast<const long long*>(order),
+               static_cast<const float*>(bsf_ub),
                static_cast<float*>(topk_d),
                static_cast<long long*>(topk_i),
                static_cast<int*>(n_s),
                static_cast<int*>(n_plb),
                static_cast<int*>(n_pf),
+               static_cast<int*>(n_box),
+               static_cast<int*>(n_seed),
                Q,
                L,
                kk,

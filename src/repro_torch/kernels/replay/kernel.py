@@ -14,14 +14,19 @@ others with their prediction, their leaf's least value and, where it can
 enter the top-k, its slots, in visit order into a ring in shared memory;
 one walker warp takes 32 entries at a time from the ring and merges only
 the leaves with a value below its bsf.  The C entry picks the instance by
-k and kk (:func:`instance`).  The wrapper checks its inputs, allocates the
-outputs with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch reports a CUDA error, and adds one to
+k and kk (:func:`instance`), and by the bound and the trace counters it is
+given (:func:`mode`): the plain instance without either (every batch and
+calibration), the bound instance with the prune-only bound ``bsf_ub``
+(the lb test against min(bsf, ub)), the traced one with the box/seed
+counters.  The wrapper checks its inputs, allocates the outputs with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch reports a CUDA error, and adds one to
 :data:`LAUNCHES`.  Every k is served by the one launch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,13 +35,15 @@ from . import ref
 
 #: launches per kernel; ``chip_smoke.py`` zeroes them before the main path
 LAUNCHES = {"replay": 0}
+#: the same launches by instance (:func:`mode`)
+MODE_LAUNCHES = {"plain": 0, "bound": 0, "traced": 0}
 
 #: the largest k whose top-k lives in registers (``REG_MAX_K``)
 REG_MAX_K = 32
 
 _SIGNATURES = {
     "replay": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -66,13 +73,24 @@ def instance(kk: int, k: int) -> str:
     return f"top-k in {top}; leaf slots a ring entry: {slots}"
 
 
+def mode(bsf_ub: Optional[torch.Tensor], trace: bool) -> str:
+    """The kernel's instance for a call's bound and trace (``MODE`` in the
+    source): "traced" with the counters (a bound or +inf), "bound" with a
+    bound only, "plain" with neither."""
+    return "traced" if trace else "plain" if bsf_ub is None else "bound"
+
+
 def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                         d_lb: torch.Tensor, d_F: torch.Tensor,
-                        order: torch.Tensor, k: int):
+                        order: torch.Tensor, k: int,
+                        bsf_ub: Optional[torch.Tensor] = None,
+                        trace: bool = False):
     """The cascade replay on one card: leaf_d (Q, L, kk) float32, leaf_i
     (Q, L, kk) int64 with leaf_d's strides, d_lb and d_F (Q, L) float32,
-    order (Q, L) int64 with entries in [0, L) → (topk_d (Q, k), topk_i
-    (Q, k), n_searched, n_pruned_lb, n_pruned_filter (Q,) int32)."""
+    order (Q, L) int64 with entries in [0, L), bsf_ub None or (Q,) float32
+    → (topk_d (Q, k), topk_i (Q, k), n_searched, n_pruned_lb,
+    n_pruned_filter (Q,) int32) and, with ``trace``, (n_box, n_seed) (Q,)
+    int32: ``ref.replay_cascade``'s outputs."""
     dev = leaf_d.device
     _require_leaf_block(leaf_d, "leaf_d", torch.float32, dev)
     _require_leaf_block(leaf_i, "leaf_i", torch.int64, dev)
@@ -87,18 +105,28 @@ def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
         if tuple(t.shape) != (Q, L):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(Q, L)}")
+    if bsf_ub is not None:
+        common.require(bsf_ub, "bsf_ub", torch.float32, 1, dev)
+        if bsf_ub.shape[0] != Q:
+            raise ValueError(f"bsf_ub has shape {tuple(bsf_ub.shape)}, "
+                             f"expected {(Q,)}")
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     topk_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     topk_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    counts = torch.empty((3, Q), dtype=torch.int32, device=dev)
+    counts = torch.empty((5 if trace else 3, Q), dtype=torch.int32,
+                         device=dev)
     lib = common.load("replay", _SIGNATURES)
     err = lib.replay(common.ptr(leaf_d), common.ptr(leaf_i),
                      leaf_d.stride(0), common.ptr(d_lb), common.ptr(d_F),
-                     common.ptr(order), common.ptr(topk_d),
-                     common.ptr(topk_i), common.ptr(counts[0]),
-                     common.ptr(counts[1]), common.ptr(counts[2]), Q, L, kk,
-                     k, common.stream_ptr(leaf_d))
+                     common.ptr(order),
+                     None if bsf_ub is None else common.ptr(bsf_ub),
+                     common.ptr(topk_d), common.ptr(topk_i),
+                     *(common.ptr(c) for c in counts[:3]),
+                     *((common.ptr(counts[3]), common.ptr(counts[4]))
+                       if trace else (None, None)),
+                     Q, L, kk, k, common.stream_ptr(leaf_d))
     common.check(err, "replay")
     LAUNCHES["replay"] += 1
-    return topk_d, topk_i, counts[0], counts[1], counts[2]
+    MODE_LAUNCHES[mode(bsf_ub, trace)] += 1
+    return (topk_d, topk_i) + tuple(counts)

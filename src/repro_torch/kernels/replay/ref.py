@@ -4,7 +4,9 @@
 engine runs it for CPU tensors and ``chip_smoke.py`` holds the kernel
 against it, bitwise, on the card.  It is the sequential cascade as a Python
 loop over the L visit positions, vectorised over the rows (the reference's
-``lax.scan`` inside a ``vmap``).
+``lax.scan`` inside a ``vmap``).  Its prune-only bound ``bsf_ub`` and its
+``trace`` counters (the box/seed split of the lb-pruned count) are the
+reference's (``src/repro/core/engine.py:307-395``).
 
 ``replay_chunked`` is the same function walked as the kernel walks it:
 producers pre-test each chunk of positions against a bsf that lags the
@@ -59,15 +61,22 @@ def counted(topk_d, topk_i, plb_hist, pf_hist):
 
 def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    d_lb: torch.Tensor, d_F: torch.Tensor,
-                   order: torch.Tensor, k: int):
+                   order: torch.Tensor, k: int,
+                   bsf_ub: Optional[torch.Tensor] = None,
+                   trace: bool = False):
     """Exact sequential-cascade replay over per-leaf top-k summaries.
 
     leaf_d/leaf_i: (Q, L, kk) each leaf's kk distances and row ids; d_lb,
-    d_F: (Q, L); order: (Q, L) visit order.  At each position, with bsf the
-    running k-th distance: lb-pruned if d_lb > bsf, else filter-pruned if
-    d_F > bsf, else the leaf's values merge into the running top-k.
-    Returns (topk_d (Q, k), topk_i (Q, k), n_searched, n_pruned_lb,
-    n_pruned_filter)."""
+    d_F: (Q, L); order: (Q, L) visit order; bsf_ub: optional (Q,) float32
+    prune-only bound on each row's k-th distance.  At each position, with
+    bsf the running k-th distance: lb-pruned if d_lb > min(bsf, ub) (the
+    minimum NaN if either is, as ``jnp.minimum``; without a bound d_lb >
+    bsf), else filter-pruned if d_F > bsf, else the leaf's values merge
+    into the running top-k.  The bound never enters the filter test or the
+    merge.  Returns (topk_d (Q, k), topk_i (Q, k), n_searched,
+    n_pruned_lb, n_pruned_filter) and, with ``trace``, the lb-pruned
+    count's split (n_box: d_lb > bsf; n_seed: lb-pruned but not box), all
+    counters int32 (Q,)."""
     Q, L, kk = leaf_d.shape
     dev = leaf_d.device
     lb_ord = torch.gather(d_lb, 1, order)
@@ -78,15 +87,23 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     topk_d, topk_i = init_topk(Q, k, dev)
     plb_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     pf_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
+    box_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     for p in range(L):
         bsf = topk_d[:, -1]
-        p_lb = lb_ord[:, p] > bsf
+        p_box = lb_ord[:, p] > bsf
+        p_lb = (p_box if bsf_ub is None
+                else lb_ord[:, p] > torch.minimum(bsf, bsf_ub))
         p_f = ~p_lb & (dF_ord[:, p] > bsf)
         vals = torch.where((p_lb | p_f)[:, None], _INF, ld_ord[:, p])
         topk_d, topk_i = merge_topk(topk_d, topk_i, vals, li_ord[:, p], k)
         plb_hist[p] = p_lb
         pf_hist[p] = p_f
-    return counted(topk_d, topk_i, plb_hist, pf_hist)
+        box_hist[p] = p_box
+    out = counted(topk_d, topk_i, plb_hist, pf_hist)
+    if not trace:
+        return out
+    return out + (box_hist.sum(dim=0, dtype=torch.int32),
+                  (plb_hist & ~box_hist).sum(dim=0, dtype=torch.int32))
 
 
 def _leaf_min(vals: torch.Tensor) -> torch.Tensor:
@@ -100,14 +117,16 @@ def _leaf_min(vals: torch.Tensor) -> torch.Tensor:
 
 
 def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
-                  d_F: torch.Tensor, order: torch.Tensor, k: int):
+                  d_F: torch.Tensor, order: torch.Tensor, k: int,
+                  bsf_ub: Optional[torch.Tensor] = None):
     """Per row, (the ring entries no bsf can drop, the leaves whose values
     enter the top-k, the searched leaves), each int32 (Q,): the positions
-    not lb-pruned by the bsf just before them (n_s + n_pf), the searched
-    positions with a value below it, and n_s.  The kernel's ring takes at
-    least the first (stale pre-tests keep more), and its walker merges at
-    least the second one by one: the serial chain that sets the time of a
-    row."""
+    not lb-pruned by the bsf just before them and the bound ``bsf_ub``
+    (n_s + n_pf), the searched positions with a value below it, and n_s.
+    The kernel's ring takes at least the first (stale pre-tests keep more;
+    the traced instance also the positions only the bound prunes), and its
+    walker merges at least the second one by one: the serial chain that
+    sets the time of a row."""
     Q, L, kk = leaf_d.shape
     lb_ord = torch.gather(d_lb, 1, order)
     dF_ord = torch.gather(d_F, 1, order)
@@ -119,7 +138,8 @@ def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
     searched_n = torch.zeros_like(entries)
     for p in range(L):
         bsf = topk_d[:, -1]
-        p_lb = lb_ord[:, p] > bsf
+        p_lb = lb_ord[:, p] > (bsf if bsf_ub is None
+                               else torch.minimum(bsf, bsf_ub))
         searched = ~p_lb & ~(dF_ord[:, p] > bsf)
         entries += ~p_lb
         searched_n += searched
@@ -131,16 +151,27 @@ def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
 
 
 def bound_bytes(leaf_d: torch.Tensor, d_lb: torch.Tensor,
-                d_F: torch.Tensor, order: torch.Tensor, k: int) -> int:
+                d_F: torch.Tensor, order: torch.Tensor, k: int,
+                bsf_ub: Optional[torch.Tensor] = None,
+                trace: bool = False) -> int:
     """The least bytes a replay call must move on its data: every
     position's order entry and bound (8 + 4), the prediction of each
-    position its bound does not prune (4), each searched leaf's kk values
-    (4 each) and each entering leaf's kk ids (8 each), and the outputs (the
-    top-k's values and ids, three counters a row)."""
+    position its bound (and ``bsf_ub``) does not prune (4), each searched
+    leaf's kk values (4 each) and each entering leaf's kk ids (8 each), a
+    row's ``bsf_ub`` where given (4), and the outputs (the top-k's values
+    and ids, three counters a row, five with ``trace``)."""
     Q, L, kk = leaf_d.shape
-    entries, entering, searched = chain_lengths(leaf_d, d_lb, d_F, order, k)
+    entries, entering, searched = chain_lengths(leaf_d, d_lb, d_F, order, k,
+                                                bsf_ub)
     return (12 * Q * L + 4 * int(entries.sum()) + 4 * kk * int(searched.sum())
-            + 8 * kk * int(entering.sum()) + Q * (12 * k + 12))
+            + 8 * kk * int(entering.sum()) + Q * (12 * k + 12)
+            + (0 if bsf_ub is None else 4 * Q) + (8 * Q if trace else 0))
+
+
+def _thr(bsf: float, ub: float) -> float:
+    """The lb test's threshold min(bsf, ub), NaN where ub is (the bsf
+    never is): ``torch.minimum``'s, and the kernel's ``min.NaN``."""
+    return ub if ub < bsf or ub != ub else bsf
 
 
 class _Row:
@@ -150,13 +181,14 @@ class _Row:
     enter the top-k, so a walk that read another's would merge the stale
     values planted here), and the bsf the producers see."""
 
-    def __init__(self, k: int, kk: int, chunk: int, capacity: int):
+    def __init__(self, k: int, kk: int, chunk: int, capacity: int,
+                 ub: float = _INF):
         self.td, self.ti = [_INF] * k, [-1] * k
-        self.kk, self.chunk, self.cap = kk, chunk, capacity
+        self.kk, self.chunk, self.cap, self.ub = kk, chunk, capacity, ub
         slots = [(-_INF, -2)] * kk
         self.ring = [(0.0, 0.0, 0.0, 0, slots)] * capacity
         self.head = self.tail = 0
-        self.plb = self.pf = self.walked = 0
+        self.plb = self.pf = self.box = self.seed = self.walked = 0
         self.published = _INF
 
     def merge(self, slots) -> None:
@@ -172,25 +204,30 @@ class _Row:
 
     def step(self, leaves) -> None:
         """The walker takes up to ``chunk`` entries: each is a candidate if
-        neither its bound nor its prediction exceeds the bsf at the step's
-        start; of the candidates, those with a value below that bsf are
-        walked one by one, each re-tested against the current bsf; then
-        every entry is classified from the bsf just before it."""
+        neither its bound (against min(bsf, ub)) nor its prediction
+        exceeds the bsf at the step's start; of the candidates, those with
+        a value below that bsf are walked one by one, each re-tested
+        against the current bsf; then every entry is classified from the
+        bsf just before it: lb-pruned, box (its bound above that bsf, the
+        bound ub aside), seed (lb-pruned, not box), filter-pruned."""
         n = min(self.tail - self.head, self.chunk)
         ents = [self.ring[(self.head + x) % self.cap] for x in range(n)]
         bsf0 = self.td[-1]
         seen = [bsf0] * n
         for j, (lb, f, vmin, o, slots) in enumerate(ents):
-            if lb > bsf0 or f > bsf0 or not vmin < bsf0:
+            if lb > _thr(bsf0, self.ub) or f > bsf0 or not vmin < bsf0:
                 continue
-            if not lb > self.td[-1] and not f > self.td[-1]:
+            if not lb > _thr(self.td[-1], self.ub) and not f > self.td[-1]:
                 self.walked += 1
                 self.merge(slots[:self.kk] if self.kk <= PRE
                            else leaves[o])
             seen[j + 1:] = [self.td[-1]] * (n - j - 1)
         for (lb, f, _, _, _), b in zip(ents, seen):
-            self.plb += lb > b
-            self.pf += not lb > b and f > b
+            p_lb = lb > _thr(b, self.ub)
+            self.plb += p_lb
+            self.pf += not p_lb and f > b
+            self.box += lb > b
+            self.seed += p_lb and not lb > b
         self.head += n
         self.published = self.td[-1]
 
@@ -209,7 +246,9 @@ class _Row:
 
 def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    d_lb: torch.Tensor, d_F: torch.Tensor,
-                   order: torch.Tensor, k: int, chunk: int = CHUNK,
+                   order: torch.Tensor, k: int,
+                   bsf_ub: Optional[torch.Tensor] = None,
+                   trace: bool = False, chunk: int = CHUNK,
                    lag: int = 0, capacity: int = RING,
                    stats: Optional[dict] = None):
     """:func:`replay_cascade` as the kernel computes it.
@@ -218,40 +257,50 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     order.  Before chunk c the walker has taken every entry of the chunks
     up to c − 1 − ``lag`` (and may be further on): the bsf it last
     published, bsf_stale, lags the walk by ``lag`` chunks.  bsf never
-    rises, so a position whose bound exceeds bsf_stale is lb-pruned for
-    certain: it is counted and dropped.  Every other position enters the
+    rises and the bound ub is fixed, so a position whose bound exceeds
+    min(bsf_stale, ub) is lb-pruned for certain; untraced, it is counted
+    and dropped.  With ``trace`` a position is dropped only where its
+    bound also exceeds bsf_stale (a box prune for certain; with a NaN ub
+    nothing is lb-pruned, so nothing is dropped); one that only the bound
+    prunes for certain enters the ring with no prediction read, and the
+    walker classifies it as box or seed.  Every other position enters the
     ring (``capacity`` entries; the walker steps when it is full) with its
-    bound, its prediction and, for kk <= :data:`PRE`, its leaf's least value
-    (NaN ignored; +inf where the prediction exceeds bsf_stale, which the
-    walker's bsf never undercuts) and, where that lies below bsf_stale,
-    its slots.  For a larger kk a candidate's least value is −inf and a
-    searched leaf's slots are read from ``leaf_d``.  The walker's steps are
-    :meth:`_Row.step`.  ``stats``, where given, gets per row the ring's
-    entries (``"entries"``) and the leaves the walker merged (``"walked"``).
+    bound, its prediction and, for kk <= :data:`PRE`, its leaf's least
+    value (NaN ignored; +inf where the prediction exceeds bsf_stale, which
+    the walker's bsf never undercuts) and, where that lies below
+    bsf_stale, its slots.  For a larger kk a candidate's least value is
+    −inf and a searched leaf's slots are read from ``leaf_d``.  The
+    walker's steps are :meth:`_Row.step`.  ``stats``, where given, gets
+    per row the ring's entries (``"entries"``) and the leaves the walker
+    merged (``"walked"``).
     """
     if capacity < chunk:
         raise ValueError(f"a ring of {capacity} entries cannot take a "
                          f"chunk of {chunk}")
     Q, L, kk = leaf_d.shape
     topk_d, topk_i = init_topk(Q, k, leaf_d.device)
-    n_plb = torch.zeros(Q, dtype=torch.int32)
-    n_pf = torch.zeros(Q, dtype=torch.int32)
+    counts = torch.zeros((4, Q), dtype=torch.int32)
+    ubs = [_INF] * Q if bsf_ub is None else bsf_ub.tolist()
     for r in range(Q):
         vals, ids = leaf_d[r].tolist(), leaf_i[r].tolist()
         leaves = [list(zip(v, i)) for v, i in zip(vals, ids)]
         lbs, fs = d_lb[r].tolist(), d_F[r].tolist()
-        row = _Row(k, kk, chunk, capacity)
+        row = _Row(k, kk, chunk, capacity, ubs[r])
         ends, dropped = [], 0
         for c, p0 in enumerate(range(0, L, chunk)):
             if c - 1 - lag >= 0:
                 while row.head < ends[c - 1 - lag]:
                     row.step(leaves)
             stale = row.published
+            thr = _thr(stale, row.ub)
             entries = []
             for o in order[r, p0:p0 + chunk].tolist():
                 lb, f = lbs[o], fs[o]
-                if lb > stale:
+                if lb > thr and (not trace or lb > stale):
                     dropped += 1
+                    continue
+                if lb > thr:                  # traced: lb-pruned for certain
+                    entries.append((lb, 0.0, _INF, o, None))
                     continue
                 cand = not f > stale
                 if kk > PRE:
@@ -268,9 +317,11 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
             row.step(leaves)
         topk_d[r] = torch.tensor(row.td, dtype=topk_d.dtype)
         topk_i[r] = torch.tensor(row.ti, dtype=topk_i.dtype)
-        n_plb[r] = row.plb + dropped
-        n_pf[r] = row.pf
+        counts[:, r] = torch.tensor([row.plb + dropped, row.pf,
+                                     row.box + dropped, row.seed])
         if stats is not None:
             stats.setdefault("entries", []).append(row.tail)
             stats.setdefault("walked", []).append(row.walked)
-    return topk_d, topk_i, L - n_plb - n_pf, n_plb, n_pf
+    n_plb, n_pf, n_box, n_seed = counts
+    out = (topk_d, topk_i, L - n_plb - n_pf, n_plb, n_pf)
+    return out + (n_box, n_seed) if trace else out

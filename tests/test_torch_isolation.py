@@ -257,7 +257,7 @@ def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
 
 
 def test_new_modules_are_checked():
-    """The import checks above reach the port's analysis and bench
+    """The import checks above reach the port's analysis, bench and obs
     modules."""
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in
              p.parents}
@@ -270,7 +270,8 @@ def test_new_modules_are_checked():
                 "kernels/filter_cnn/kernel.py", "kernels/filter_cnn/ref.py",
                 "kernels/filter_rnn/kernel.py", "kernels/filter_rnn/ref.py",
                 "kernels/dtw/kernel.py", "kernels/dtw/ref.py", "core/dtw.py",
-                "bench/lstm_designs.py", "bench/backbone_sources.py"):
+                "bench/lstm_designs.py", "bench/backbone_sources.py",
+                "obs/__init__.py", "obs/trace.py", "obs/audit.py"):
         assert mod in names
 
 

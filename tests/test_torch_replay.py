@@ -3,13 +3,16 @@
 CPU by ``kernels/replay/ref.replay_chunked``) against the plain loop.
 
 The replay only compares and selects, so every comparison here is exact:
-the top-k distances bit for bit, the ids and all three counters equal.
+the top-k distances bit for bit, the ids and all three counters equal (and
+with ``trace=True`` the box/seed split of the lb-pruned count too, with and
+without the prune-only bound ``bsf_ub``).
 The inputs are made adversarial from a numpy seed: values drawn from a few
 levels (ties everywhere), +-inf among the bounds, predictions and leaf
 values, shuffled visit orders, k = 1, 5, 33 and kk < k; NaN too where the
 port is compared with itself (the JAX package's top_k orders NaN another
 way than torch.sort, and neither caller passes one).
 """
+import ctypes
 import importlib.util
 import pathlib
 import re
@@ -92,6 +95,57 @@ def test_plain_replay_matches_reference(k, kk, shuffled, sorted_leaves):
     assert int(got[2].sum()) > 0 and int(got[3].sum()) > 0
 
 
+def _bound(seed: int, Q: int, nan: bool = True) -> torch.Tensor:
+    """A (Q,) bound from the levels (so it undercuts the bsf at some
+    positions and not at others), +inf on some rows and, with ``nan``, NaN
+    on some (nothing lb-pruned there: ``jnp.minimum``'s NaN)."""
+    rng = np.random.default_rng(seed)
+    ub = rng.choice(LEVELS[:4] * np.float32(0.8), Q)
+    special = rng.random(Q)
+    ub[special < 0.15] = np.inf
+    if nan:
+        ub[special > 0.9] = np.nan
+    return torch.from_numpy(ub.astype(np.float32))
+
+
+@pytest.mark.parametrize("k, kk, shuffled, sorted_leaves", [
+    (1, 1, False, True),
+    (5, 5, False, True),
+    (5, 5, True, False),
+    (5, 2, True, True),
+    (33, 7, False, True),
+    (33, 40, True, False),
+])
+def test_plain_replay_with_bound_and_trace_matches_reference(
+        k, kk, shuffled, sorted_leaves):
+    """The plain loop with ``bsf_ub`` and ``trace=True`` against the JAX
+    package's ``_replay_cascade(bsf_ub=..., trace=True)``: the top-k, all
+    five counters; without the bound the seed count is zero and the box
+    count the lb-pruned one; the untraced outputs are the traced ones'
+    first five."""
+    arrays = _inputs(k * 100 + kk, 6, 150, kk, shuffled=shuffled,
+                     sorted_leaves=sorted_leaves)
+    ub = _bound(k + kk, 6, nan=False)
+    want = j_engine._replay_cascade(*(jnp.asarray(a) for a in arrays), k=k,
+                                    bsf_ub=jnp.asarray(ub.numpy()),
+                                    trace=True)
+    t = _torch(arrays)
+    got = ref.replay_cascade(*t, k, bsf_ub=ub, trace=True)
+    assert len(got) == len(want) == 7
+    _assert_bitwise([g.numpy() for g in got], want)
+    assert int(got[5].sum()) > 0
+    if shuffled:        # in lb order the bsf falls first, seldom below ub
+        assert int(got[6].sum()) > 0
+    untraced = ref.replay_cascade(*t, k, bsf_ub=ub)
+    _assert_bitwise([g.numpy() for g in untraced], [g.numpy()
+                                                    for g in got[:5]])
+    plain = ref.replay_cascade(*t, k, trace=True)
+    want_plain = j_engine._replay_cascade(*(jnp.asarray(a) for a in arrays),
+                                          k=k, trace=True)
+    _assert_bitwise([g.numpy() for g in plain], want_plain)
+    assert int(plain[6].sum()) == 0 and torch.equal(plain[5], plain[3])
+
+
 #: (lag, capacity) of the emulated walk: the freshest pre-test bsf and the
 #: kernel's ring; a bsf one and four chunks stale in smaller rings; and a
 #: walker that moves only when the ring is full (the most stale pre-tests,
@@ -121,6 +175,44 @@ def test_chunked_walk_equals_plain_loop(lag, capacity):
                                  capacity=capacity)
         _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
     check()
+
+
+@pytest.mark.parametrize("lag, capacity", WALKS)
+def test_chunked_walk_with_bound_and_trace_equals_plain_loop(lag, capacity):
+    """The kernel's walk with the bound (the producers' drop and the
+    walker's tests against min(bsf, ub)) and with the trace (the producers
+    drop only certain box prunes; the positions only the bound prunes for
+    certain enter the ring, and the walker splits box from seed), emulated,
+    equals the plain loop bitwise, NaN (in the bound too) included."""
+    @settings(max_examples=25, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), Q=st.integers(1, 3),
+           L=st.integers(1, 90), kk=st.integers(0, 10),
+           k=st.sampled_from([1, 2, 5, 32, 33]),
+           chunk=st.sampled_from([1, 3, 32]),
+           shuffled=st.sampled_from([False, True]),
+           trace=st.sampled_from([False, True]))
+    def check(seed, Q, L, kk, k, chunk, shuffled, trace):
+        arrays = _torch(_inputs(seed, Q, L, kk, shuffled=shuffled,
+                                specials=(np.inf, -np.inf, np.nan),
+                                sorted_leaves=seed % 2 == 0))
+        ub = _bound(seed, Q)
+        want = ref.replay_cascade(*arrays, k, bsf_ub=ub, trace=trace)
+        got = ref.replay_chunked(*arrays, k, bsf_ub=ub, trace=trace,
+                                 chunk=chunk, lag=lag, capacity=capacity)
+        _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
+    check()
+
+
+def test_chunked_walk_traced_without_a_bound():
+    """``trace=True`` without a bound (the traced instance's ub = +inf):
+    the emulated walk's box count is its lb-pruned count, its seed count
+    zero, both as the plain loop's."""
+    arrays = _torch(_inputs(12, 3, 200, 5, shuffled=True,
+                            specials=(np.inf, -np.inf, np.nan)))
+    want = ref.replay_cascade(*arrays, 5, trace=True)
+    got = ref.replay_chunked(*arrays, 5, trace=True, lag=2, capacity=64)
+    _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
+    assert torch.equal(got[5], got[3]) and not got[6].any()
 
 
 def _late_inputs(seed: int, Q: int, L: int, kk: int):
@@ -161,6 +253,30 @@ def test_chunked_walk_when_the_bsf_falls_late(lag, capacity, k, kk):
         assert (entries <= least + 2 * ref.CHUNK).all()
     else:
         assert (entries > least).all()
+
+
+@pytest.mark.parametrize("lag, capacity", [(0, ref.RING), (10 ** 9, 32)])
+def test_chunked_walk_on_chip_smoke_held_calls_with_bound(lag, capacity):
+    """chip_smoke.py's held replay calls with ``chip_smoke.replay_bound``'s
+    bound (a row's own bound drawn, +inf rows, a NaN row): the emulated
+    walk, untraced and traced, equals the plain loop on the first 24 rows
+    of each; the bound prunes seed positions somewhere."""
+    smoke = _load_smoke()
+    seeds = 0
+    for c in smoke.replay_calls(device="cpu"):
+        ub = smoke.replay_bound(c)
+        assert ub.shape == (c[0].shape[0],) and ub.dtype == torch.float32
+        assert torch.isinf(ub).any()
+        if c[0].shape[0] > 8:
+            assert torch.isnan(ub[1])
+        c = tuple(t[:24] for t in c[:5]) + (c[5],)
+        for trace in (False, True):
+            want = ref.replay_cascade(*c, bsf_ub=ub[:24], trace=trace)
+            got = ref.replay_chunked(*c, bsf_ub=ub[:24], trace=trace,
+                                     lag=lag, capacity=capacity)
+            assert all(smoke._bitwise_equal(g, w) for g, w in zip(got, want))
+        seeds += int(want[6].sum())
+    assert seeds > 0
 
 
 def test_chain_lengths_count_the_walk():
@@ -231,13 +347,21 @@ def test_chunked_walk_on_chip_smoke_held_calls(lag, capacity):
 
 def test_engine_replay_runs_the_plain_loop_on_the_cpu():
     """``engine.replay_cascade`` keeps its signature: CPU tensors take the
-    plain loop (bitwise), and the kernel is not launched."""
+    plain loop (bitwise), with the bound and the trace too, and the kernel
+    is not launched."""
     arrays = _torch(_inputs(3, 4, 70, 5, shuffled=True))
     before = dict(replay_kernel.LAUNCHES)
     got = engine.replay_cascade(*arrays, k=5)
     want = ref.replay_cascade(*arrays, 5)
     _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
+    ub = _bound(3, 4)
+    got = engine.replay_cascade(*arrays, k=5, bsf_ub=ub, trace=True)
+    want = ref.replay_cascade(*arrays, 5, bsf_ub=ub, trace=True)
+    assert len(got) == 7
+    _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
     assert replay_kernel.LAUNCHES == before == {"replay": 0}
+    assert replay_kernel.MODE_LAUNCHES == {"plain": 0, "bound": 0,
+                                           "traced": 0}
 
 
 def test_calibration_replay_matches_reference_loop():
@@ -282,21 +406,42 @@ def test_kernel_wrapper_checks_before_it_builds():
     for args, err in bad:
         with pytest.raises(err):
             replay_kernel.replay_cascade_cuda(*args)
+    good = (leaf_d, leaf_i, d_lb, d_F, order, 5)
+    for ub, err in ((torch.zeros(2), ValueError),
+                    (torch.zeros(3, dtype=torch.float64), TypeError),
+                    (torch.zeros((3, 1)), ValueError),
+                    (torch.zeros(6)[::2], ValueError)):
+        with pytest.raises(err):
+            replay_kernel.replay_cascade_cuda(*good, bsf_ub=ub)
     assert replay_kernel.LAUNCHES == {"replay": 0}
+    assert [replay_kernel.mode(ub, t) for ub, t in
+            ((None, False), (torch.zeros(3), False), (None, True),
+             (torch.zeros(3), True))] == ["plain", "bound", "traced",
+                                          "traced"]
 
 
 def test_c_entry_matches_the_binding():
-    """One C entry, ``replay``, with the binding's 16 arguments; the source
+    """One C entry, ``replay``, with the binding's 19 arguments (the bound
+    after the order, the trace's two counters after the three); the source
     names what it replaces; the walker's step is the emulation's chunk, the
     ring's capacity and an entry's slots are the emulation's, the launch
     is a block a row (256 blocks at a batch's 256 rows: every SM of an
-    H100's 132 holds one), and ``kernel.instance`` names the instance the
-    C entry picks by k and kk."""
+    H100's 132 holds one), ``kernel.instance`` names the instance the C
+    entry picks by k and kk, and ``kernel.mode`` the plain, bound or
+    traced one it picks by the pointers it is given."""
     text = (common.CSRC / "replay.cu").read_text()
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
     assert [name for name, _ in entries] == ["replay"]
-    assert len(entries[0][1].split(",")) == len(
-        replay_kernel._SIGNATURES["replay"]) == 16
+    params = [p.split()[-1].strip("*") for p in entries[0][1].split(",")]
+    assert len(params) == len(replay_kernel._SIGNATURES["replay"]) == 19
+    assert params[6] == "bsf_ub" and params[12:14] == ["n_box", "n_seed"]
+    sig = replay_kernel._SIGNATURES["replay"]
+    assert sig[6] is ctypes.c_void_p and sig[12:14] == [ctypes.c_void_p] * 2
+    assert "if (a.box) return launch_mode<REG, NS, TRACED>(a, st);" in text
+    assert "if (a.ub) return launch_mode<REG, NS, BOUND>(a, st);" in text
+    assert "return launch_mode<REG, NS, PLAIN>(a, st);" in text
+    assert "constexpr int PLAIN = 0, BOUND = 1, TRACED = 2;" in text
+    assert 'asm("min.NaN.f32' in text
     assert "src/repro/core/engine.py:307" in text
     assert re.search(r"constexpr int REG_MAX_K = 32;", text)
     assert "32 * SUB" in text and ref.CHUNK == 32
@@ -317,6 +462,7 @@ def test_c_entry_matches_the_binding():
     # the walker's loop reads the ring, never the arrays the producers load
     walk = text[text.index("__device__ __forceinline__ int2 walk("):
                 text.index("// producer `first`")]
+    assert "int4 walk_bound(" in walk           # the bound's walker too
     for name in ("__ldg(lbr", "__ldg(fr", "__ldg(ord", "__ldg(ldr"):
         assert name not in walk
 
@@ -344,6 +490,29 @@ def test_chip_smoke_holds_and_counts_the_replay():
     assert by == "bytes"
     assert ms == ref.bound_bytes(leaf_d, d_lb, d_F, order, k) \
         / roofline.H100.hbm_bw * 1e3
+
+
+def test_chain_lengths_and_bound_bytes_with_a_bound():
+    """With ``bsf_ub`` the ring entries no bsf can drop are the positions
+    the bound does not lb-prune either (n_s + n_pf of the bounded loop),
+    and the bytes add each row's bound and, traced, its two counters."""
+    arrays = _torch(_inputs(8, 5, 140, 4, shuffled=True,
+                            specials=(np.inf, -np.inf, np.nan)))
+    leaf_d, leaf_i, d_lb, d_F, order = arrays
+    ub = _bound(8, 5)
+    _, _, n_s, n_plb, n_pf = ref.replay_cascade(*arrays, 5, bsf_ub=ub)
+    entries, entering, searched = ref.chain_lengths(leaf_d, d_lb, d_F,
+                                                    order, 5, bsf_ub=ub)
+    assert torch.equal(entries, n_s + n_pf) and torch.equal(searched, n_s)
+    Q, L, kk = leaf_d.shape
+    base = (12 * Q * L + 4 * int(entries.sum()) + 4 * kk * int(n_s.sum())
+            + 8 * kk * int(entering.sum()) + Q * (12 * 5 + 12))
+    assert ref.bound_bytes(leaf_d, d_lb, d_F, order, 5,
+                           bsf_ub=ub) == base + 4 * Q
+    assert ref.bound_bytes(leaf_d, d_lb, d_F, order, 5, bsf_ub=ub,
+                           trace=True) == base + 12 * Q
+    unbounded, _, _ = ref.chain_lengths(leaf_d, d_lb, d_F, order, 5)
+    assert int(entries.sum()) < int(unbounded.sum())
 
 
 def test_bound_bytes_counts_what_the_data_needs():
@@ -390,3 +559,45 @@ def test_chip_smoke_captures_batch_and_calibration_calls(monkeypatch):
     assert captured["replay"][1][5] == 5
     assert captured["replay@calibration"][1][2].shape == (8, 30)
     assert conformal.simulate_search.__name__ == "simulate_search"
+
+
+def test_chip_smoke_capture_keeps_plain_replay_calls(monkeypatch):
+    """The engine calls the replay with its keywords (``bsf_ub=None``):
+    the capture keeps such a plain call, and passes a bound or traced
+    call through unrecorded."""
+    smoke = _load_smoke()
+    monkeypatch.setattr(replay_kernel, "replay_cascade_cuda",
+                        ref.replay_cascade)
+    arrays = _torch(_inputs(4, 3, 30, 5, shuffled=False))
+    captured: dict = {}
+    with smoke.capture_largest_inputs(captured):
+        replay_kernel.replay_cascade_cuda(*arrays, 1, bsf_ub=_bound(4, 3),
+                                          trace=True)
+        replay_kernel.replay_cascade_cuda(*arrays, 5, bsf_ub=_bound(4, 3))
+        assert "replay" not in captured
+        replay_kernel.replay_cascade_cuda(*arrays, 1, bsf_ub=None,
+                                          trace=False)
+    assert captured["replay"][1][5] == 1
+
+
+def test_replay_layouts_reads_either_entry(tmp_path):
+    """``bench/replay_layouts.py`` binds the product's 19-argument entry and
+    an older source's 16-argument one (no bound, no trace counters), and
+    refuses any other."""
+    from repro_torch.bench import replay_layouts
+    text = (common.CSRC / "replay.cu").read_text()
+    assert replay_layouts._signature(common.CSRC / "replay.cu") \
+        == replay_kernel._SIGNATURES["replay"]
+    old = tmp_path / "old.cu"
+    old.write_text(
+        'extern "C" int replay(const void* leaf_d, const void* leaf_i,\n'
+        '    long long row_stride, const void* d_lb, const void* d_F,\n'
+        '    const void* order, void* topk_d, void* topk_i, void* n_s,\n'
+        '    void* n_plb, void* n_pf, int Q, int L, int kk, int k,\n'
+        '    void* stream) {}\n')
+    assert replay_layouts._signature(old) == replay_layouts._OLD_SIGNATURE
+    assert len(replay_layouts._OLD_SIGNATURE) == 16
+    bad = tmp_path / "bad.cu"
+    bad.write_text(text.replace("void* stream)", "int extra, void* stream)"))
+    with pytest.raises(ValueError, match="20 arguments"):
+        replay_layouts._signature(bad)
