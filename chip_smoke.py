@@ -28,7 +28,13 @@
    the calibration runs as one launch of the replay kernel; every training
    step of every build is one launch each of the two training kernels and
    every validation pass one of ``filter_mlp`` (asserted from the counters:
-   no step runs autograd).
+   no step runs autograd).  Every build of the script (this one, the d =
+   128 DSTree, iSAX, deep and sift) runs under ``obs.recording()``
+   (``_build``): its span table printed (name, depth, lane, duration,
+   args) and held by ``check_build_spans``: the seven spans in closing
+   order with the reference's nesting and args, each ``build.*`` span
+   within 2% or 10 ms of its ``build_report`` time, and the spans' Chrome
+   trace (``chiprun_out/build_spans_<label>.json``) read back equal.
 3. Breaks one DSTree search batch (k = 5, target 0.99) down by layer (the
    candidate pass and the replay timed alone on the inputs the engine hands
    them; both also held against their plain versions there, and the replay
@@ -100,7 +106,12 @@
    k-th distance, inflated): exact answers those of the unbounded batch,
    seed prunes, the bounded batches on the replay's bound instance
    (launches by instance asserted); a traced batch's median wall beside
-   the untraced one's.
+   the untraced one's.  Every audited batch is folded into a
+   ``LeafHealthBoard`` with a ``MetricsRegistry`` (``check_health_board``:
+   the window's totals equal to the folded audits, the flags in the
+   reference's severity order, every Prometheus sample line ``name{labels}
+   value``), and a ``RecallDriftMonitor`` takes the k = 1, 0.99 batch's
+   per-query hits against the exact batch.
 6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
    own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
    index's shape (its F, Q = 256, m = h = 256): the per-filter
@@ -110,6 +121,12 @@
    kernel's register instances) on RandWalk 100,000 × 256: exact search
    == brute force for 64 queries at k = 5, and its scan strategy with
    trace and audit (``_scan_trace_audit``: bitwise the untraced scan).
+   Then the same build under ``torch.profiler`` (``profile_build``): every
+   span one ``user_annotation``, the device kernels launched inside
+   ``build.collect`` including ``pairwise_l2``, ``slab_l2`` and ``box_lb``
+   launches and those inside ``train.sgd`` ``train_forward`` and
+   ``train_backward_sgd`` (by the launching call's correlation id); its
+   wall beside the unprofiled build's.
 7. iSAX, end to end on the same collection: ``build_leafi(LeaFiConfig(
    backbone="isax", word_len=8, leaf_capacity=256,
    t_filter_over_t_series=20.0))`` with float32 filter weights, then
@@ -836,6 +853,193 @@ def _build_lines(label: str, lfi, t_build: float, on_card: bool) -> None:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+#: the build's spans (``repro_torch.obs.spans``) in the order they close,
+#: each with its parent span (depth 1) or None (depth 0), its args and the
+#: ``build_report`` time its duration must match
+BUILD_SPANS = {
+    "build.index": (None, ("backbone",), "t_index_build"),
+    "collect.global": ("build.collect", ("n_global",), None),
+    "collect.local": ("build.collect", ("n_filters", "n_local"), None),
+    "build.collect": (None, ("n_filters", "n_global", "n_local"),
+                      "t_collect"),
+    "train.sgd": ("build.train", ("epochs", "n_filters"), None),
+    "build.train": (None, ("n_filters",), "t_train"),
+    "build.calibrate": (None, ("n_cal",), "t_calibrate"),
+}
+#: a ``build.*`` span's duration against its ``build_report`` time: within
+#: this share of it, or this many seconds
+SPAN_REL, SPAN_ABS_S = 0.02, 0.010
+#: the device kernels of the wrappers the profiled build's spans enclose
+SPAN_KERNELS = {
+    "build.collect": {"pairwise_l2": ("l2_tf32x3_kernel",),
+                      "slab_l2": ("slab_tf32x3_kernel",),
+                      "box_lb": ("box_lb_kernel", "box_lb_any_d_kernel")},
+    "train.sgd": {"train_forward": ("train_forward_kernel",),
+                  "train_backward_sgd": ("train_backward_sgd_kernel",)},
+}
+
+
+def _span_args(lfi) -> dict:
+    """The args each build span must carry, from the built index."""
+    cfg = lfi.config
+    want = {"backbone": cfg.backbone, "n_filters": len(lfi.leaf_ids),
+            "n_global": cfg.n_global, "n_local": cfg.n_local,
+            "epochs": cfg.train.epochs, "n_cal": len(lfi.calib.queries)}
+    return {name: {a: want[a] for a in args}
+            for name, (_, args, _) in BUILD_SPANS.items()}
+
+
+def check_build_spans(spans: list, lfi, label: str,
+                      trace_dir: str | None = None) -> dict:
+    """A build's recorded spans: the seven names in closing order, each of
+    category ``build`` on lane 0, ``collect.*`` at depth 1 inside
+    ``build.collect`` and ``train.sgd`` inside ``build.train``, the rest at
+    depth 0, with the reference's args (Python ints and strings); each
+    ``build.*`` span's duration within ``SPAN_REL`` or ``SPAN_ABS_S`` of
+    its ``build_report`` time.  Prints the span table, writes the spans as
+    a Chrome trace (``export.write_chrome_trace``: under ``trace_dir``, or
+    a temporary directory) and asserts that ``json.load`` reads it back
+    equal.  Returns the durations by name (s)."""
+    import tempfile
+    from repro_torch.obs import export
+    names = [s.name for s in spans]
+    assert names == list(BUILD_SPANS), f"{label}build spans {names}"
+    by = {s.name: s for s in spans}
+    args = _span_args(lfi)
+    rows = []
+    for s in spans:
+        parent, _, key = BUILD_SPANS[s.name]
+        assert s.cat == "build" and s.lane == 0, (label, s)
+        assert s.depth == (parent is not None), (label, s)
+        assert s.args == args[s.name] and all(
+            type(v) in (int, str) for v in s.args.values()), (label, s)
+        if parent is not None:
+            p = by[parent]
+            assert p.t0 <= s.t0 and s.t0 + s.dur <= p.t0 + p.dur, \
+                f"{label}{s.name} is not inside {parent}"
+        row = (f"  {s.name:16s} depth {s.depth} lane {s.lane} "
+               f"{s.dur * 1e3:10.3f} ms {json.dumps(s.args)}")
+        if key is not None:
+            t = lfi.build_report[key]
+            assert abs(s.dur - t) <= max(SPAN_REL * t, SPAN_ABS_S), \
+                f"{label}{s.name} {s.dur!r} s against {key} {t!r} s"
+            row += f"  ({key} {t * 1e3:.3f} ms)"
+        rows.append(row)
+    log(f"{label}build spans (name, depth, lane, duration, args):\n"
+        + "\n".join(rows))
+    tag = label.strip().replace(" ", "_").replace("=", "") or "dstree"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(trace_dir or tmp, f"build_spans_{tag}.json")
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+        trace = export.write_chrome_trace(path, spans=spans)
+        with open(path) as fh:
+            assert json.load(fh) == trace, f"{label}Chrome trace round trip"
+    log(f"{label}build spans as a Chrome trace: {len(trace['traceEvents'])} "
+        f"events, read back equal" + (f" ({path})" if trace_dir else ""))
+    return {s.name: s.dur for s in spans}
+
+
+def _build(series: np.ndarray, cfg, device: str, label: str,
+           on_card: bool):
+    """``build_leafi`` under ``obs.recording()``: prints the build's lines
+    and checks its spans (``check_build_spans``; on the card the Chrome
+    trace stays under ``chiprun_out/``).  Returns the index and the
+    build's wall (s)."""
+    from repro_torch import obs
+    from repro_torch.core import build
+    t0 = time.perf_counter()
+    with obs.recording() as rec:
+        lfi = build.build_leafi(series, cfg, device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    _build_lines(label, lfi, wall, on_card)
+    check_build_spans(rec.drain(), lfi, label or "dstree ",
+                      os.path.join(ROOT, "chiprun_out") if on_card else None)
+    return lfi, wall
+
+
+def _annotated_kernels(trace: dict, names) -> dict:
+    """From a ``torch.profiler`` Chrome trace: for each span name, its
+    ``user_annotation`` events and the device kernels (by short name:
+    launches) whose launching runtime or driver call, matched by
+    correlation id, lies inside one of them on the same thread."""
+    events = trace["traceEvents"]
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and e.get("name") in names]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    out = {n: {"annotations": 0, "kernels": {}} for n in names}
+    for a in ann:
+        out[a["name"]]["annotations"] += 1
+    for k in events:
+        if k.get("cat") != "kernel":
+            continue
+        call = calls.get(k.get("args", {}).get("correlation"))
+        if call is None:
+            continue
+        for a in ann:
+            if (a["pid"], a["tid"]) == (call["pid"], call["tid"]) and \
+                    a["ts"] <= call["ts"] and \
+                    call["ts"] + call.get("dur", 0) <= a["ts"] + a["dur"]:
+                kern = out[a["name"]]["kernels"]
+                short = _kernel_name(k["name"])
+                kern[short] = kern.get(short, 0) + 1
+    return out
+
+
+def profile_build(series: np.ndarray, cfg, t_unprofiled: float, *,
+                  device: str = "cuda", label: str = "") -> dict:
+    """One build under ``torch.profiler`` (CPU and, on the card, CUDA
+    activities) and ``obs.recording()``: its spans checked as every
+    build's (``check_build_spans``), every span a ``user_annotation`` in
+    the profiler's Chrome trace, and (on the card) the device kernels
+    launched inside ``build.collect`` including ``pairwise_l2``,
+    ``slab_l2`` and ``box_lb`` launches, those inside ``train.sgd``
+    ``train_forward`` and ``train_backward_sgd`` (``SPAN_KERNELS``).
+    Prints the profiled build's wall beside ``t_unprofiled``."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core import build
+    on_card = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with obs.recording() as rec, profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        lfi = build.build_leafi(series, cfg, device=device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    spans = check_build_spans(rec.drain(), lfi, f"{label}profiled ")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    found = _annotated_kernels(trace, tuple(BUILD_SPANS))
+    t_export = time.perf_counter() - t0
+    for name, got in found.items():
+        assert got["annotations"] == 1, \
+            f"{label}profiled build: {name} is not one user_annotation"
+    log(f"{label}profiled build: wall {wall:.3f} s under torch.profiler "
+        f"against {t_unprofiled:.3f} s unprofiled; "
+        f"{len(trace['traceEvents'])} trace events, exported and read in "
+        f"{t_export:.2f} s; every span one user_annotation; "
+        "device kernels launched inside each span: " + json.dumps(
+            {n: g["kernels"] for n, g in found.items()}))
+    if on_card:
+        for name, wrappers in SPAN_KERNELS.items():
+            got = found[name]["kernels"]
+            for wrapper, kernels in wrappers.items():
+                assert any(got.get(k, 0) > 0 for k in kernels), \
+                    f"{label}profiled build: no {wrapper} launch in {name}"
+    return {"wall_s": wall, "spans_s": spans,
+            "kernels": {n: g["kernels"] for n, g in found.items()}}
+
+
 def _query_setup(series: np.ndarray, n_queries: int):
     from repro_torch.data.series import make_query_set
     queries = make_query_set(series, n_queries, noise=0.2, seed=42)
@@ -877,10 +1081,7 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
     captured = {} if captured is None else captured
     _zero_counters()
     with capture_largest_inputs(captured):
-        t0 = time.perf_counter()
-        lfi = build.build_leafi(series, cfg, device=device)
-        _sync(device)
-        _build_lines("", lfi, time.perf_counter() - t0, on_card)
+        lfi, _ = _build(series, cfg, device, "", on_card)
 
         results, marks = {}, {}
         t0 = time.perf_counter()
@@ -926,28 +1127,29 @@ def run_end_to_end(*, n: int = 1_000_000, m: int = 256,
 
 
 def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
-                    n_queries: int = 64, device: str = "cuda",
-                    captured: dict | None = None) -> dict:
+                    n_queries: int = 64, epochs: int = 300,
+                    device: str = "cuda", captured: dict | None = None
+                    ) -> dict:
     """A DSTree build whose bounds are wider than the box kernel's register
     instances: ``n_segments`` EAPCA segments, so d = 2 x ``n_segments``
     (128) box dimensions, on RandWalk ``n`` x ``m`` (numpy seed 0);
     ``n_queries`` queries exact and at 0.99, k = 5.  Asserts exact ==
-    brute force and (on the card) that the search kernels launched."""
+    brute force and (on the card) that the search kernels launched.  Then
+    the same build again under ``torch.profiler`` (``profile_build``),
+    after the launches are read."""
     import torch
-    from repro_torch.core import build
+    from repro_torch.core import build, filter_training
     series = make_series(n, m)
     cfg = build.LeaFiConfig(backbone="dstree", n_segments=n_segments,
-                            leaf_capacity=256, t_filter_over_t_series=20.0)
+                            leaf_capacity=256, t_filter_over_t_series=20.0,
+                            train=filter_training.TrainConfig(epochs=epochs))
     queries, _ = _query_setup(series, n_queries)
     on_card = torch.device(device).type == "cuda"
     captured = {} if captured is None else captured
     _zero_counters()
+    label = f"dstree d={2 * n_segments} "
     with capture_largest_inputs(captured):
-        t0 = time.perf_counter()
-        lfi = build.build_leafi(series, cfg, device=device)
-        _sync(device)
-        _build_lines(f"dstree d={2 * n_segments} ", lfi,
-                     time.perf_counter() - t0, on_card)
+        lfi, t_build = _build(series, cfg, device, label, on_card)
         results = {}
         for name, target in (("exact", None), ("0.99", 0.99)):
             _sync(device)
@@ -970,7 +1172,9 @@ def run_wide_dstree(*, n: int = 100_000, m: int = 256, n_segments: int = 64,
     _check_build_launches(launches, lfi, f"dstree d={2 * n_segments} ",
                           on_card)
     _scan_trace_audit(lfi, queries, device, f"dstree d={2 * n_segments} ")
-    return {"launches": launches}
+    profiled = profile_build(series, cfg, t_build, device=device,
+                             label=label)
+    return {"launches": launches, "profiled_build": profiled}
 
 
 def _scan_trace_audit(lfi, queries: np.ndarray, device: str,
@@ -1547,6 +1751,74 @@ def _check_trace_audit(r, n_leaves: int, label: str) -> dict:
     return {f: int(t[f].sum()) for f in t}
 
 
+#: the audit's integer fields the health board sums over its window
+BOARD_INT_FIELDS = ("violations", "resid_count", "scored", "kept",
+                    "pruned_box", "pruned_seed", "pruned_filter",
+                    "rows_saved")
+#: a Prometheus text-exposition sample line: name{labels} value
+_PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_PROM_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\[\\"n])*"'
+PROM_SAMPLE = re.compile(rf"^{_PROM_NAME}(?:\{{{_PROM_LABEL}"
+                         rf"(?:,{_PROM_LABEL})*\}})? (\S+)$")
+
+
+def check_health_board(board, registry, folded: list, label: str) -> dict:
+    """A ``LeafHealthBoard`` fed ``folded`` (audit dict, queries) batches:
+    ``window_totals()`` equal to the folded audits' sums (the integer
+    fields and the query count exactly, ``resid_sum`` to float64 rounding,
+    ``resid_min`` exactly), ``health_violations_total`` their violations,
+    ``filters_needing_attention()`` the leaves the board's thresholds flag
+    on those totals, with their reasons, in the reference's severity order
+    (shadow misses, then violation rate descending, then worst residual,
+    then leaf); every non-comment line of the registry's Prometheus text
+    ``name{labels} value``.  Returns the reports and the line count."""
+    tot = board.window_totals()
+    assert len(folded) <= board.window, (label, len(folded))
+    for f in BOARD_INT_FIELDS:
+        want = np.zeros(board.n_leaves, np.int64)
+        for audit, _ in folded:
+            want += np.asarray(audit[f], np.int64)
+        assert tot[f].dtype == np.int64 and np.array_equal(tot[f], want), \
+            f"{label}board: window total of {f}"
+    assert tot["n_queries"] == sum(q for _, q in folded), label
+    np.testing.assert_allclose(
+        tot["resid_sum"], np.sum([np.asarray(a["resid_sum"], np.float64)
+                                  for a, _ in folded], axis=0),
+        rtol=1e-12, atol=0, err_msg=f"{label}board: resid_sum")
+    assert np.array_equal(tot["resid_min"], np.min(
+        [np.asarray(a["resid_min"], np.float64) for a, _ in folded],
+        axis=0)), f"{label}board: resid_min"
+    assert registry.counter("health_violations_total").value() == float(
+        tot["violations"].sum()), label
+    reports = board.filters_needing_attention()
+    rate = tot["violations"] / np.maximum(tot["resid_count"], 1)
+    want = {}
+    for leaf in range(board.n_leaves):
+        reasons = [r for r, hit in (
+            ("violation-rate", tot["resid_count"][leaf]
+             >= board.min_resid_count
+             and rate[leaf] > board.violation_rate_threshold),
+            ("deep-violation", tot["violations"][leaf] > 0
+             and tot["resid_min"][leaf] < board.resid_min_threshold),
+            ("shadow-miss", tot["shadow_misses"][leaf]
+             >= board.min_shadow_misses)) if hit]
+        if reasons:
+            want[leaf] = reasons
+    assert {r.leaf: r.reasons for r in reports} == want, \
+        f"{label}board: flagged leaves"
+    keys = [(-r.shadow_misses, -r.violation_rate, r.resid_min, r.leaf)
+            for r in reports]
+    assert keys == sorted(keys), f"{label}board: severity order"
+    text = registry.prometheus_text()
+    samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    for ln in samples:
+        m = PROM_SAMPLE.match(ln)
+        assert m is not None, f"{label}Prometheus line {ln!r}"
+        float(m.group(1))
+    return {"reports": reports, "lines": len(text.splitlines()),
+            "samples": len(samples)}
+
+
 def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
                     impls=(None,), label: str = "", reps: int = 5) -> dict:
     """The cascade trace and the per-leaf filter audit through
@@ -1562,12 +1834,26 @@ def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
     read over the phase (the replay by instance: the bounded batches take
     its bound instance, none its traced one).  Prints each batch's
     counts and a traced and audited batch's median wall (``reps`` rounds,
-    in turns with the untraced one) beside the untraced one's."""
+    in turns with the untraced one) beside the untraced one's.  Every
+    audited batch's ``SearchResult.audit`` is folded into a
+    ``LeafHealthBoard`` with a ``MetricsRegistry`` attached
+    (``check_health_board``), and a ``RecallDriftMonitor`` on the same
+    registry is fed the k = 1, 0.99 batch's per-query hits against the
+    exact batch (the default pass)."""
     import torch
+    from repro_torch import obs
     on_card = torch.device(device).type == "cuda"
     n_leaves = lfi.index.n_leaves
+    registry = obs.MetricsRegistry()
+    board = obs.LeafHealthBoard(registry=registry)
+    folded: list = []
+
+    def fold(r):
+        board.record_audit(r.audit, r.dists.shape[0])
+        folded.append((r.audit, r.dists.shape[0]))
+
     _zero_counters()
-    runs, n_bound = {}, 0
+    runs, n_bound, hits = {}, 0, None
     for impl in impls:
         for k in ((1, 5) if impl is None else (5,)):
             exact = None
@@ -1583,13 +1869,17 @@ def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
                 sums = _check_trace_audit(traced, n_leaves, tag)
                 assert sums["pruned_seed"] == 0, (tag, sums)
                 runs[(impl, k, name)] = sums
+                fold(traced)
                 if target is None:
                     exact = plain
+                elif impl is None and k == 1:
+                    hits = plain.ids[:, 0] == exact.ids[:, 0]
                 ub = (exact.dists[:, k - 1] * (1 + 1e-6) + 1e-6).astype(
                     np.float32)
                 bounded = lfi.search(queries, bsf_ub=ub, trace=True,
                                      audit=True, **kw)
                 n_bound += 1
+                fold(bounded)
                 bsums = _check_trace_audit(bounded, n_leaves, tag + " bound")
                 assert (bounded.searched <= plain.searched).all() or \
                     target is not None, f"{tag}: the bound searched more"
@@ -1628,10 +1918,12 @@ def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
                              {"trace": True, "audit": True})):
             _sync(device)
             t0 = time.perf_counter()
-            lfi.search(queries, k=5, quality_target=0.99, device=device,
-                       **extra)
+            r = lfi.search(queries, k=5, quality_target=0.99, device=device,
+                           **extra)
             _sync(device)
             walls[name].append((time.perf_counter() - t0) * 1e3)
+            if extra:
+                fold(r)
     med = {n: float(np.median(v)) for n, v in walls.items()}
     log(f"{label}trace and audit: a k=5, 0.99 batch of {len(queries)} "
         f"queries, median of {reps} rounds in turns: untraced "
@@ -1639,8 +1931,29 @@ def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
         f"{', '.join(f'{t:.2f}' for t in walls['untraced'])}], traced and "
         f"audited {med['traced and audited']:.2f} ms [runs "
         f"{', '.join(f'{t:.2f}' for t in walls['traced and audited'])}]")
+    t0 = time.perf_counter()
+    health = check_health_board(board, registry, folded, label)
+    monitor = obs.RecallDriftMonitor(registry)
+    for hit in hits.tolist():
+        monitor.observe(0.99, hit)
+    health.update(recall=monitor.windowed_recall(),
+                  drifting=monitor.any_drifting(),
+                  lines=len(registry.prometheus_text().splitlines()))
+    log(f"{label}health board over {len(folded)} audited batches "
+        f"({board.window_totals()['n_queries']} queries, "
+        f"{n_leaves} leaves): {len(health['reports'])} leaves flagged, the "
+        "first three " + json.dumps([r.to_dict() for r in
+                                     health["reports"][:3]])
+        + f"; windowed totals equal the folded audits, the flags in "
+        f"severity order; drift monitor on the k=1, 0.99 batch's "
+        f"{len(hits)} hits: windowed recall "
+        f"{json.dumps(health['recall'])}, drifting {health['drifting']}; "
+        f"the registry's Prometheus text {health['lines']} lines, every "
+        f"sample line name{{labels}} value; "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     return {"launches": launches, "replay_modes": modes, "wall_ms": med,
-            "runs": {" ".join(map(str, key)): v for key, v in runs.items()}}
+            "runs": {" ".join(map(str, key)): v for key, v in runs.items()},
+            "health": health}
 
 
 def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
@@ -1709,10 +2022,7 @@ def run_isax(*, n: int = 1_000_000, m: int = 256, n_queries: int = 256,
     captured = {} if captured is None else captured
     _zero_counters()
     with capture_largest_inputs(captured):
-        t0 = time.perf_counter()
-        lfi = build.build_leafi(series, cfg, device=device)
-        _sync(device)
-        _build_lines("isax ", lfi, time.perf_counter() - t0, on_card)
+        lfi, _ = _build(series, cfg, device, "isax ", on_card)
         sizes = lfi.index.leaf_size.cpu().numpy()
         log(f"isax leaves: {int((sizes > leaf_capacity).sum())} above "
             f"capacity {leaf_capacity}; median size {np.median(sizes):.0f}")
@@ -2338,10 +2648,7 @@ def run_datasets(*, n: int = 200_000, n_queries: int = 64,
             train=filter_training.TrainConfig(epochs=epochs))
         queries, _ = _query_setup(series, n_queries)
         _zero_counters()
-        t0 = time.perf_counter()
-        lfi = build.build_leafi(series, cfg, device=device)
-        _sync(device)
-        _build_lines(f"{name} ", lfi, time.perf_counter() - t0, on_card)
+        lfi, _ = _build(series, cfg, device, f"{name} ", on_card)
         results = {}
         for k in (1, 5):
             for tname, target in (("exact", None), ("0.99", 0.99)):

@@ -11,9 +11,12 @@ filters trained elsewhere, ``LeaFiConfig.filter_type``).
 
 Steps 3 and 5 run the pairwise, slab, box lower-bound and fused filter
 kernels on the card.  ``build_report`` keeps each phase's wall time (host
-clock around a device synchronize).  :func:`requantize_leafi` swaps a built
-index's weight payload and refits the tuners on the stored calibration
-split.
+clock around a device synchronize); each phase is also a span
+(``build.index``, ``build.collect``, ``build.train``,
+``build.calibrate``; :mod:`repro_torch.obs.spans`) that closes after the
+phase's synchronize, so its duration is the phase's device time.
+:func:`requantize_leafi` swaps a built index's weight payload and refits
+the tuners on the stored calibration split.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import torch
 
 from . import conformal, filter_training, filters, search, selection, tree
 from .flat_index import FlatIndex
-from ..kernels.common import Device, resolve_device
+from ..kernels.common import Device, resolve_device, sync
+from ..obs import span
 
 
 @dataclasses.dataclass
@@ -94,11 +98,6 @@ class LeaFiIndex:
                            quality_target=None, device=device, **kw)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
                 device: Device = None) -> LeaFiIndex:
     """Alg. 1: LeaFi-enhanced index building, on the card unless
@@ -119,14 +118,15 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
 
     # 0. backbone index (host), moved to the device
     t0 = time.perf_counter()
-    if config.backbone == "dstree":
-        index = tree.build_dstree(series, config.leaf_capacity,
-                                  config.n_segments)
-    else:
-        index = tree.build_isax(series, config.leaf_capacity,
-                                config.word_len)
-    index = index.to(dev)
-    _sync(dev)
+    with span("build.index", cat="build", backbone=config.backbone):
+        if config.backbone == "dstree":
+            index = tree.build_dstree(series, config.leaf_capacity,
+                                      config.n_segments)
+        else:
+            index = tree.build_isax(series, config.leaf_capacity,
+                                    config.word_len)
+        index = index.to(dev)
+        sync(dev)
     report["t_index_build"] = time.perf_counter() - t0
 
     # 1. SelectLeafNode (Alg. 3)
@@ -145,9 +145,11 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
 
     # 2-3. training data (global + local, two-pass collection)
     t0 = time.perf_counter()
-    data = filter_training.collect_training_data(
-        index, leaf_ids, config.n_global, config.n_local, generator)
-    _sync(dev)
+    with span("build.collect", cat="build", n_filters=len(leaf_ids),
+              n_global=config.n_global, n_local=config.n_local):
+        data = filter_training.collect_training_data(
+            index, leaf_ids, config.n_global, config.n_local, generator)
+        sync(dev)
     report["t_collect"] = time.perf_counter() - t0
 
     # 4. TrainFilters on the proper-training split
@@ -158,9 +160,10 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
         global_d_lb=data.global_d_lb[:-n_cal])
     t0 = time.perf_counter()
     cfg_train = dataclasses.replace(config.train, hidden=config.hidden)
-    params, train_report = filter_training.train_filters(
-        index, train_data, cfg_train, generator)
-    _sync(dev)
+    with span("build.train", cat="build", n_filters=len(leaf_ids)):
+        params, train_report = filter_training.train_filters(
+            index, train_data, cfg_train, generator)
+        sync(dev)
     report["t_train"] = time.perf_counter() - t0
     report["val_rmse_z"] = float(train_report["val_rmse_z"].mean())
 
@@ -170,14 +173,15 @@ def build_leafi(series: np.ndarray, config: LeaFiConfig = LeaFiConfig(), *,
 
     # 5. FitAutoTuners on the calibration split (Alg. 4)
     t0 = time.perf_counter()
-    calib = CalibSplit(queries=data.global_queries[-n_cal:],
-                       d_lb=data.global_d_lb[-n_cal:],
-                       d_L=data.global_d_L[-n_cal:])
-    d_pred_cal = search.predictions_for_all_leaves(
-        index, params, leaf_ids, calib.queries, offsets=None)
-    tuner, cal_report = conformal.fit_autotuners(
-        calib.d_lb, d_pred_cal, calib.d_L, leaf_ids)
-    _sync(dev)
+    with span("build.calibrate", cat="build", n_cal=n_cal):
+        calib = CalibSplit(queries=data.global_queries[-n_cal:],
+                           d_lb=data.global_d_lb[-n_cal:],
+                           d_L=data.global_d_L[-n_cal:])
+        d_pred_cal = search.predictions_for_all_leaves(
+            index, params, leaf_ids, calib.queries, offsets=None)
+        tuner, cal_report = conformal.fit_autotuners(
+            calib.d_lb, d_pred_cal, calib.d_L, leaf_ids)
+        sync(dev)
     report["t_calibrate"] = time.perf_counter() - t0
     report["calib_best_quality"] = float(cal_report["rank_quality"].max())
     return LeaFiIndex(index, params, leaf_ids, tuner, config, report, calib)

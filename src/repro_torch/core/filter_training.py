@@ -26,7 +26,8 @@ import torch
 from . import bounds as bounds_mod
 from . import engine, filters, summaries
 from .flat_index import FlatIndex
-from ..kernels.common import on_cpu
+from ..kernels.common import on_cpu, sync
+from ..obs import span
 from ..kernels.filter_train import kernel as train_kernel
 from ..kernels.filter_train import ref as train_ref
 
@@ -111,18 +112,24 @@ def collect_training_data(index: FlatIndex, leaf_ids: np.ndarray,
                           local_queries: Optional[torch.Tensor] = None
                           ) -> TrainingData:
     """Alg. 1 steps 2–3.  ``global_queries`` / ``local_queries`` replace the
-    generator's draws when given."""
+    generator's draws when given.  Each pass is a span (``collect.global``,
+    ``collect.local``); the global one ends with a device synchronize, so
+    its duration is its device time."""
     dev = index.device
     ids = torch.as_tensor(np.asarray(leaf_ids), device=dev)
-    gq = (make_noisy_queries(index.series[: index.n_series], n_global,
-                             generator, noise_low, noise_high)
-          if global_queries is None else global_queries.to(dev))
-    d_L = nodewise_nn_distances(index, gq, dist_impl)
-    d_lb = bounds_mod.lower_bounds(index, gq)
-    lq = (make_local_queries(index, ids, n_local, generator, noise_low,
-                             noise_high)
-          if local_queries is None else local_queries.to(dev))
-    ld = local_nn_distances(index, lq, ids, dist_impl)
+    with span("collect.global", cat="build", n_global=n_global):
+        gq = (make_noisy_queries(index.series[: index.n_series], n_global,
+                                 generator, noise_low, noise_high)
+              if global_queries is None else global_queries.to(dev))
+        d_L = nodewise_nn_distances(index, gq, dist_impl)
+        d_lb = bounds_mod.lower_bounds(index, gq)
+        sync(dev)
+    with span("collect.local", cat="build", n_local=n_local,
+              n_filters=len(leaf_ids)):
+        lq = (make_local_queries(index, ids, n_local, generator, noise_low,
+                                 noise_high)
+              if local_queries is None else local_queries.to(dev))
+        ld = local_nn_distances(index, lq, ids, dist_impl)
     return TrainingData(gq, d_L, d_lb, lq, ld, np.asarray(leaf_ids))
 
 
@@ -235,19 +242,23 @@ def train_filters(index: FlatIndex, data: TrainingData,
     best_val = torch.full((F,), float("inf"), device=dev)
     eval_every = max(n_steps // 20, 1)
 
-    for i in range(n_steps):
-        lr = cfg.lr * (1.0 if i < 0.6 * n_steps
-                       else 0.1 if i < 0.85 * n_steps else 0.01)
-        # the step's rows are views of the drawn index tensors: no launch
-        sgd_step(tp, vel, inp, ig_all[i], il_all[i], lr, cfg.momentum)
-        if i % eval_every == 0:
-            val = _val_loss(tp, inp)
-            improved = val < best_val
-            for k in train_ref.TRAINABLE:
-                keep = improved.reshape((F,) + (1,) * (tp[k].dim() - 1))
-                best[k] = torch.where(keep, tp[k], best[k])
-            best_val = torch.minimum(val, best_val)
+    # the span ends with the host copy of the validation losses, so its
+    # duration is the step loop's device time
+    with span("train.sgd", cat="build", n_filters=F, epochs=cfg.epochs):
+        for i in range(n_steps):
+            lr = cfg.lr * (1.0 if i < 0.6 * n_steps
+                           else 0.1 if i < 0.85 * n_steps else 0.01)
+            # the step's rows are views of the drawn index tensors: no launch
+            sgd_step(tp, vel, inp, ig_all[i], il_all[i], lr, cfg.momentum)
+            if i % eval_every == 0:
+                val = _val_loss(tp, inp)
+                improved = val < best_val
+                for k in train_ref.TRAINABLE:
+                    keep = improved.reshape((F,) + (1,) * (tp[k].dim() - 1))
+                    best[k] = torch.where(keep, tp[k], best[k])
+                best_val = torch.minimum(val, best_val)
+        val_rmse_z = torch.sqrt(best_val).cpu().numpy()
 
     params.update(best)
-    report = {"val_rmse_z": torch.sqrt(best_val).cpu().numpy()}
+    report = {"val_rmse_z": val_rmse_z}
     return params, report

@@ -60,6 +60,12 @@ def resolve_device(device: Device) -> torch.device:
     return dev
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (→ the plain version runs)."""
     return all(t.device.type == "cpu" for t in tensors)

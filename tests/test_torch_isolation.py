@@ -242,8 +242,11 @@ def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
     profiler sees no device and the wrappers launch nothing)."""
     smoke = _load_smoke()
     wide = smoke.run_wide_dstree(n=1500, m=256, n_segments=64, n_queries=8,
-                                 device="cpu")
+                                 epochs=20, device="cpu")
     assert set(wide["launches"]) == set(smoke.KERNELS)
+    prof = wide["profiled_build"]
+    assert set(prof["spans_s"]) == set(smoke.BUILD_SPANS)
+    assert prof["wall_s"] > 0 and not any(prof["kernels"].values())
     out = smoke.run_end_to_end(n=2000, m=64, n_queries=8, n_brute=8,
                                leaf_capacity=64, n_global=60, n_local=16,
                                epochs=20, device="cpu")
@@ -253,6 +256,10 @@ def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
     assert prof["device_busy_ms_per_step"] is None
     printed = capsys.readouterr().out
     assert "dstree d=128 exact search == brute force on 8 queries" in printed
+    assert "dstree d=128 build spans (name, depth, lane, duration, args)" \
+        in printed
+    assert "dstree d=128 profiled build: wall" in printed
+    assert "every span one user_annotation" in printed
     assert "dstree training profile (F=" in printed
 
 
@@ -271,8 +278,28 @@ def test_new_modules_are_checked():
                 "kernels/filter_rnn/kernel.py", "kernels/filter_rnn/ref.py",
                 "kernels/dtw/kernel.py", "kernels/dtw/ref.py", "core/dtw.py",
                 "bench/lstm_designs.py", "bench/backbone_sources.py",
-                "obs/__init__.py", "obs/trace.py", "obs/audit.py"):
+                "obs/__init__.py", "obs/trace.py", "obs/audit.py",
+                "obs/metrics.py", "obs/spans.py", "obs/export.py",
+                "obs/health.py", "obs/explain.py"):
         assert mod in names
+
+
+def test_spans_pass_through_is_torch_not_jax():
+    """The span recorder annotates through ``torch.profiler`` and names no
+    JAX anywhere in its source, docstrings included; the package exports
+    every name of the reference's ``repro.obs``."""
+    text = (PORT / "obs" / "spans.py").read_text()
+    assert "jax" not in text.lower()
+    assert "from torch.profiler import record_function" in text
+    from repro_torch import obs
+    ref = REPO / "src" / "repro" / "obs" / "__init__.py"
+    tree = ast.parse(ref.read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    assert set(names) <= set(obs.__all__)
+    for name in names:
+        assert hasattr(obs, name), name
 
 
 def test_chip_smoke_bounds_use_the_roofline_module():

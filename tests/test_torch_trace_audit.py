@@ -334,8 +334,10 @@ def test_chip_smoke_trace_phase_on_the_cpu(built, queries_small):
     """``chip_smoke.run_trace_audit`` and the scan check of the d = 128
     DSTree (``_scan_trace_audit``), rehearsed on the carried index on the
     CPU: every batch's identities hold, the bound's exact answers are
-    bitwise the unbounded ones with seed prunes, and the phase reports
-    its runs and walls."""
+    bitwise the unbounded ones with seed prunes, the health board's
+    totals and flags check out against the folded audits and its
+    Prometheus text parses, and the phase reports its runs, walls, board
+    and drift monitor."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
         / "chip_smoke.py")
@@ -349,4 +351,11 @@ def test_chip_smoke_trace_phase_on_the_cpu(built, queries_small):
         "untraced", "traced and audited"}
     assert all(v["pruned_seed"] > 0 for key, v in out["runs"].items()
                if key.endswith("exact bound"))
+    # the health board over the 13 audited batches (12 above, 1 timed) and
+    # the drift monitor over the k = 1, 0.99 batch's 32 hits
+    health = out["health"]
+    assert health["lines"] > health["samples"] > 0
+    assert set(health["recall"]) == {0.99}
+    assert 0.0 <= health["recall"][0.99] <= 1.0
+    assert health["drifting"] is False                # 32 < min_samples
     smoke._scan_trace_audit(port, queries_small[:8], "cpu", "cpu ")
