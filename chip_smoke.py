@@ -111,7 +111,27 @@
    the window's totals equal to the folded audits, the flags in the
    reference's severity order, every Prometheus sample line ``name{labels}
    value``), and a ``RecallDriftMonitor`` takes the k = 1, 0.99 batch's
-   per-query hits against the exact batch.
+   per-query hits against the exact batch.  Then serving
+   (``run_serving``) on the same index: ``save_index`` to
+   ``.chip_scratch/`` and ``load_index`` onto the card (every array
+   bitwise, a 256-query batch at k = 5, exact and 0.99, bitwise the same
+   answers and counters; the bytes and the save and load seconds
+   printed); ``repro_torch.launch.serve.main`` in this process on that
+   checkpoint (``--arch leafi --batch 64 --k 5 --requests 2048 --rate
+   2000 --targets 0.9,0.95,0.99 --max-wait-ms 20 --warm-start
+   --shadow-rate 0.05 --summary --explain 0`` with the health, metrics
+   and trace dumps into ``chiprun_out/``): every request answered, each
+   target group's recall printed beside its n, the Prometheus text
+   parsing, the Chrome trace holding ``serve.dispatch`` and
+   ``serve.harvest``; a warm-start ``ServingSession`` over 1,024 requests
+   (k = 1 and 5) served serially and with ``pipeline=2`` under one
+   injected clock, the batch logs, completions and results equal (``==``)
+   and every served distance at least the exact one less 1e-4; and the
+   served batch's time in four sessions (cold, warm start, audited, both):
+   ``serve_form_s`` and ``serve_exec_s`` p50/p95/p99 beside the medians
+   of ``BsfCache.seed``, ``tuner.offsets``, the board's refresh and the
+   ``index.order`` copy.  The phase's launches join the paths' counts
+   (warm start runs the replay's bound instance).
 6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
    own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
    index's shape (its F, Q = 256, m = h = 256): the per-filter
@@ -575,7 +595,8 @@ def _call_size(name: str, args, out) -> int:
 
 
 @contextlib.contextmanager
-def capture_largest_inputs(captured: dict):
+def capture_largest_inputs(captured: dict, bound: bool = False,
+                           max_q: int | None = None):
     """Record, per kernel, the arguments of its largest call (by output
     elements) while the main path runs, and for the filter entries (the
     fused MLP's, the CNN's, the LSTM's) and ``box_lb`` also those of the
@@ -585,8 +606,11 @@ def capture_largest_inputs(captured: dict):
     the calls inside ``conformal.simulate_search``); for the candidate pass
     the probe's calls apart (``leaf_topk@probe``, rows by slot); for the
     early walk every call, in order (``early_walk@calls``).  A replay
-    call with a bound or a trace (its bound or traced instance) passes
-    through unrecorded.  The
+    call with a trace (its traced instance) passes through unrecorded, and
+    so does one with a bound (its bound instance) unless ``bound``: then
+    the largest such call is kept as ``replay@bound``, (arguments,
+    bound).  With ``max_q``, a call of more queries (rows of its queries
+    argument) counts only among ``box_lb@shapes``.  The
     training kernels' calls all have one size per build; of the largest build's, the
     ``TRAIN_CAPTURE_CALL``-th is kept, with the parameters and velocities
     it was given cloned (later steps update them in place) and without the
@@ -634,9 +658,22 @@ def capture_largest_inputs(captured: dict):
 
         def wrapped(*args, _fn=fn, _naming=naming, **kw):
             out = _fn(*args, **kw)
-            if kw.get("bsf_ub") is not None or kw.get("trace"):
-                return out         # the replay's bound or traced instance
+            if kw.get("trace"):
+                return out         # the replay's traced instance
             name = _naming(args)
+            if name == "box_lb":
+                shapes = captured.setdefault("box_lb@shapes", {})
+                key = (args[0].shape[0], args[1].shape[0], args[0].shape[1])
+                shapes[key] = (shapes.get(key, (0, None))[0] + 1, args)
+            n_q = args[3 if name.startswith("leaf_topk") else 0].shape[0]
+            if max_q is not None and n_q > max_q:
+                return out
+            if kw.get("bsf_ub") is not None:
+                # the replay's bound instance
+                size = _call_size("replay", args, out)
+                if bound and size > captured.get("replay@bound", (0,))[0]:
+                    captured["replay@bound"] = (size, (args, kw["bsf_ub"]))
+                return out
             if name == "early_walk@calls":
                 captured.setdefault(name, []).append(args)
                 return out
@@ -645,13 +682,8 @@ def capture_largest_inputs(captured: dict):
                 captured[name] = (size, args)
             if name.startswith("fused_filter_mlp") or name in (
                     "box_lb", "filter_cnn", "filter_rnn"):
-                n_q = args[0].shape[0]
                 if n_q < captured.get(f"{name}@min_q", (math.inf, None))[0]:
                     captured[f"{name}@min_q"] = (n_q, args)
-            if name == "box_lb":
-                shapes = captured.setdefault("box_lb@shapes", {})
-                key = (args[0].shape[0], args[1].shape[0], args[0].shape[1])
-                shapes[key] = (shapes.get(key, (0, None))[0] + 1, args)
             return out
         saved.append((mod, attr, fn))
         setattr(mod, attr, wrapped)
@@ -1810,13 +1842,19 @@ def check_health_board(board, registry, folded: list, label: str) -> dict:
             for r in reports]
     assert keys == sorted(keys), f"{label}board: severity order"
     text = registry.prometheus_text()
+    return {"reports": reports, "lines": len(text.splitlines()),
+            "samples": _prom_samples(text, label)}
+
+
+def _prom_samples(text: str, label: str = "") -> int:
+    """Every non-comment line of a Prometheus text is ``name{labels}
+    value``; returns their count."""
     samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
     for ln in samples:
         m = PROM_SAMPLE.match(ln)
         assert m is not None, f"{label}Prometheus line {ln!r}"
         float(m.group(1))
-    return {"reports": reports, "lines": len(text.splitlines()),
-            "samples": len(samples)}
+    return len(samples)
 
 
 def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
@@ -1954,6 +1992,415 @@ def run_trace_audit(lfi, queries: np.ndarray, *, device: str = "cuda",
     return {"launches": launches, "replay_modes": modes, "wall_ms": med,
             "runs": {" ".join(map(str, key)): v for key, v in runs.items()},
             "health": health}
+
+
+#: the kernels of every served batch (the default pass: probe and survivors
+#: on ``leaf_topk``; warm start on the replay's bound instance)
+SERVING_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
+#: the batch log's host-clock keys, stripped before logs are compared
+SERVE_HOST_KEYS = ("wall", "dispatch_s", "harvest_s", "t_disp", "t_done")
+#: the launcher's flags in the serving phase (the checkpoint, the device,
+#: the batch, the request count, the rate and the dumps are added)
+SERVE_FLAGS = ("--arch", "leafi", "--k", "5",
+               "--targets", "0.9,0.95,0.99", "--max-wait-ms", "20",
+               "--warm-start", "--shadow-rate", "0.05", "--summary",
+               "--explain", "0")
+#: the breakdown's session configurations: (label, warm_start, audit)
+SERVE_CONFIGS = (("cold", False, False), ("warm start", True, False),
+                 ("audited", False, True), ("both", True, True))
+
+
+def _index_arrays(lfi) -> dict:
+    """An index's tensors and arrays by name, for a bitwise comparison."""
+    idx = lfi.index
+    out = {n: getattr(idx, n) for n in ("series", "order", "leaf_start",
+                                        "leaf_size")}
+    out.update({f"payload/{k}": v for k, v in idx.payload.items()})
+    out.update({f"filter_params/{k}": v
+                for k, v in (lfi.filter_params or {}).items()})
+    out["leaf_ids"] = np.asarray(lfi.leaf_ids)
+    if lfi.tuner is not None:
+        out.update({f"tuner/{k}": np.asarray(getattr(lfi.tuner, k))
+                    for k in ("knots_q", "knots_o", "slopes", "max_offset")})
+    if lfi.calib is not None:
+        out.update({f"calib/{k}": getattr(lfi.calib, k)
+                    for k in ("queries", "d_lb", "d_L")})
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors or arrays on one device, of one dtype and shape, with
+    equal bits (``_bitwise_equal``)."""
+    import torch
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.device == b.device and _bitwise_equal(a, b)
+
+
+def check_checkpoint_round_trip(lfi, queries: np.ndarray, path: str,
+                                device: str, label: str = "") -> dict:
+    """``save_index`` of the index to ``path``, ``load_index`` onto
+    ``device``: every array bitwise the built index's, the tuner's knots,
+    the config and the build report equal; a batch at k = 5, exact and at
+    0.99, bitwise the same answers and counters on both.  Prints the
+    checkpoint's bytes and the save and load seconds; leaves the
+    checkpoint at ``path``."""
+    from repro_torch.serving import session as serving_session
+    t0 = time.perf_counter()
+    serving_session.save_index(path, lfi)
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path))
+    _sync(device)
+    t0 = time.perf_counter()
+    loaded = serving_session.load_index(path, device=device)
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    want, got = _index_arrays(lfi), _index_arrays(loaded)
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    bad = [k for k in want if not _same_bits(got[k], want[k])]
+    assert not bad, f"{label}checkpoint: arrays differ after load: {bad}"
+    for f in serving_session._CONFIG_FIELDS:
+        assert getattr(loaded.config, f) == getattr(lfi.config, f), f
+    assert loaded.build_report == {k: float(v) for k, v in
+                                   lfi.build_report.items()}
+    for target in (None, 0.99):
+        a = lfi.search(queries, k=5, quality_target=target, device=device)
+        b = loaded.search(queries, k=5, quality_target=target,
+                          device=device)
+        assert _same_answers(a, b), \
+            f"{label}checkpoint: the loaded index answers otherwise " \
+            f"(k=5, target={target})"
+    log(f"{label}checkpoint round trip: {n_bytes} bytes "
+        f"({n_bytes / 2**30:.3f} GiB, {len(want)} arrays), save "
+        f"{save_s:.2f} s, load onto {device} {load_s:.2f} s; every array "
+        f"bitwise, the tuner, config and build report equal, a batch of "
+        f"{len(queries)} at k=5 exact and 0.99 bitwise the same answers "
+        "and counters")
+    del loaded
+    return {"bytes": n_bytes, "save_s": save_s, "load_s": load_s}
+
+
+def _serve_main(argv: list, out_path: str) -> tuple:
+    """``repro_torch.launch.serve.main(argv)`` in this process, its
+    standard output written to ``out_path`` (its telemetry summary lists
+    every flagged leaf) and returned beside the report."""
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        report = serve.main(argv)
+    wall = time.perf_counter() - t0
+    with open(out_path, "w") as fh:
+        fh.write(buf.getvalue())
+    return report, buf.getvalue(), wall
+
+
+def check_serving_determinism(lfi, queries: np.ndarray, *, device: str,
+                              n_requests: int = 1024, batch: int = 64,
+                              captured: dict | None = None,
+                              label: str = "") -> dict:
+    """One warm-start ``ServingSession`` over a seeded trace (ks 1 and 5,
+    targets 0.9 / 0.95 / 0.99, ``max_batch`` ``batch``), served serially
+    and with ``pipeline=2`` under one injected ``service_time``: the same
+    batch log (host keys stripped), completions and results, compared with
+    ``==``; the exact search's nearest distances those of a plain
+    brute-force scan (``_plain_nearest``, rtol 1e-4, atol 1e-3, as
+    ``_brute_force_check``); every served distance at least the exact one
+    less 1e-4 (the warm bound prunes only); each target group's share of
+    requests served their true nearest distance printed.  The two
+    serving runs' kernel calls (and no others) are captured into
+    ``captured``, the replay's bound instance's too."""
+    from repro_torch import serving
+    trace = serving.poisson_trace(queries, rate=2000.0,
+                                  n_requests=n_requests,
+                                  targets=(0.9, 0.95, 0.99), ks=(1, 5),
+                                  seed=7)
+
+    def service(b):
+        return 4e-3 * max(b.bucket / batch, 0.25)
+
+    reports = {}
+    with (contextlib.nullcontext() if captured is None
+          else capture_largest_inputs(captured, bound=True, max_q=batch)):
+        for pipeline in (0, 2):
+            session = serving.ServingSession(lfi, warm_start=True,
+                                             device=device)
+            reports[pipeline] = session.serve(
+                trace, batcher=serving.MicroBatcher(max_batch=batch,
+                                                    max_wait=0.02),
+                service_time=service, pipeline=pipeline)
+    r0, r2 = reports[0], reports[2]
+
+    def strip(log_):
+        return [{k: v for k, v in b.items() if k not in SERVE_HOST_KEYS}
+                for b in log_]
+    assert strip(r0["batches"]) == strip(r2["batches"]), \
+        f"{label}serving: pipelined batch log differs from the serial one"
+    assert r0["completions"].keys() == r2["completions"].keys()
+    for rid, c0 in r0["completions"].items():
+        c2 = r2["completions"][rid]
+        assert c0["latency"] == c2["latency"] and \
+            c0["result"] == c2["result"], (label, rid, c0, c2)
+    assert len(r0["completions"]) == n_requests
+    exact = lfi.search(queries, k=1, quality_target=None,
+                       device=device).dists[:, 0]
+    truth = _plain_nearest(lfi.index, queries)
+    np.testing.assert_allclose(exact, truth, rtol=1e-4, atol=1e-3,
+                               err_msg=f"{label}serving: the exact oracle")
+    served = {r.rid: r0["completions"][r.rid]["result"]["dist"]
+              for r in trace}
+    worst = min(served[r.rid] - float(exact[r.pool_row]) for r in trace)
+    assert worst >= -1e-4, f"{label}serving: a warm-start distance " \
+        f"{-worst} below the exact one"
+    hits: dict = {}
+    for r in trace:
+        t = truth[r.pool_row]
+        hits.setdefault(r.quality_target, []).append(
+            served[r.rid] <= t + 1e-3 + 1e-4 * t)
+    share = {f"{t:g}": float(np.mean(h)) for t, h in sorted(hits.items())}
+    log(f"{label}serving determinism: {n_requests} requests (k=1/5, "
+        f"targets 0.9/0.95/0.99) in {len(r0['batches'])} batches of up to "
+        f"{batch}, warm start, serial == pipeline=2 (batch log, latencies, "
+        f"results; ==); the exact oracle == a plain float64 scan of "
+        f"{truth.shape[0]} queries; served - exact distance >= {worst:.3g} "
+        f"(>= -1e-4); share served the true nearest distance by target "
+        + json.dumps(share))
+    return {"n_batches": len(r0["batches"]), "min_margin": worst,
+            "true_nearest_share": share}
+
+
+def _plain_nearest(index, queries: np.ndarray,
+                   chunk: int = 1 << 17) -> np.ndarray:
+    """Each query's nearest Euclidean distance over the index's series, by
+    a float64 scan in plain PyTorch (no kernel of the port), on the index's
+    device, in chunks of ``chunk`` series."""
+    import torch
+    series = index.series[: index.n_series]
+    q = torch.as_tensor(queries, device=series.device, dtype=torch.float64)
+    qq = (q * q).sum(1, keepdim=True)
+    best = torch.full((q.shape[0],), math.inf, dtype=torch.float64,
+                      device=series.device)
+    for i in range(0, series.shape[0], chunk):
+        s = series[i:i + chunk].double()
+        d2 = qq + (s * s).sum(1)[None, :] - 2.0 * q @ s.T
+        best = torch.minimum(best, d2.min(1).values)
+    return best.clamp_min(0).sqrt().cpu().numpy()
+
+
+class _Timed:
+    """Wall seconds of each call of one method of one object, set on the
+    instance (``undo`` removes it)."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.calls = obj, name, []
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.calls.append(time.perf_counter() - t0)
+            return out
+        setattr(obj, name, timed)
+
+    def undo(self) -> None:
+        delattr(self.obj, self.name)
+
+    def median_ms(self):
+        return float(np.median(self.calls)) * 1e3 if self.calls else None
+
+
+def serving_breakdown(lfi, trace, *, device: str, batch: int = 64,
+                      label: str = "") -> dict:
+    """Serve ``trace`` serially on the measured clock in four
+    configurations (cold, warm start, audited, both) and print the p50,
+    p95 and p99 of ``serve_form_s`` (host formation and enqueue) and
+    ``serve_exec_s`` (the wait on the card and the copy back), with the
+    medians, a batch, of ``BsfCache.seed``, the per-query
+    ``tuner.offsets``, the health board's refresh (``record_audit``) and,
+    timed alone, the 8-byte-a-series ``index.order`` copy each dispatch
+    makes."""
+    from repro_torch import serving
+    from repro_torch.serving import latency_percentiles
+    out = {}
+    for name, warm, audit in SERVE_CONFIGS:
+        session = serving.ServingSession(lfi, warm_start=warm, audit=audit,
+                                         device=device)
+        session.warmup(max_batch=batch, ks=(5,),
+                       queries=np.stack([r.query for r in trace[:batch]]))
+        timers = [_Timed(session.warm_cache, "seed"),
+                  _Timed(lfi.tuner, "offsets"),
+                  _Timed(session.telemetry.health, "record_audit")]
+        try:
+            t0 = time.perf_counter()
+            report = session.serve(trace, batcher=serving.MicroBatcher(
+                max_batch=batch, max_wait=0.02))
+            wall = time.perf_counter() - t0
+        finally:
+            for t in timers:
+                t.undo()
+        tel = session.telemetry
+        row = {"qps": report["throughput_qps"], "p50_ms": report["p50"] * 1e3,
+               "p99_ms": report["p99"] * 1e3, "wall_s": wall,
+               "n_batches": report["n_batches"],
+               "form_ms": {k: v * 1e3 for k, v in latency_percentiles(
+                   list(tel.form_s)).items()},
+               "exec_ms": {k: v * 1e3 for k, v in latency_percentiles(
+                   list(tel.exec_s)).items()},
+               "seed_ms": timers[0].median_ms(),
+               "offsets_ms": timers[1].median_ms(),
+               "board_ms": timers[2].median_ms()}
+        out[name] = row
+        log(f"{label}serving breakdown [{name}]: {report['n_requests']} "
+            f"requests in {row['n_batches']} batches, {row['qps']:.1f} qps "
+            f"(measured clock), latency p50 {row['p50_ms']:.2f} / p99 "
+            f"{row['p99_ms']:.2f} ms; serve_form_s p50/p95/p99 "
+            + "/".join(f"{v:.3f}" for v in row["form_ms"].values())
+            + " ms, serve_exec_s "
+            + "/".join(f"{v:.3f}" for v in row["exec_ms"].values())
+            + " ms; a batch's BsfCache.seed "
+            + _ms(row["seed_ms"]) + ", tuner.offsets " + _ms(row["offsets_ms"])
+            + ", board refresh " + _ms(row["board_ms"]))
+    order = lfi.index.order
+    copies = []
+    for _ in range(20):
+        _sync(device)
+        t0 = time.perf_counter()
+        order.cpu().numpy()
+        copies.append(time.perf_counter() - t0)
+    out["order_copy_ms"] = float(np.median(copies)) * 1e3
+    log(f"{label}serving breakdown: the index.order copy each dispatch "
+        f"makes ({order.numel() * order.element_size()} bytes), median of "
+        f"20 alone {out['order_copy_ms']:.3f} ms")
+    return out
+
+
+def _ms(v) -> str:
+    return "not run" if v is None else f"{v:.3f} ms"
+
+
+def _merge_serving(captured: dict, served: dict) -> None:
+    """The serving phase's captured calls into ``captured``: each kernel's
+    largest under ``<key>@serving`` (the probe's, ``leaf_topk@probe``, and
+    the replay's bound instance's, ``replay@bound``, too), its ``box_lb``
+    shapes beside the other paths' (their launches added)."""
+    for key, val in served.items():
+        if key == "box_lb@shapes":
+            shapes = captured.setdefault(key, {})
+            for shape, (count, args) in val.items():
+                shapes[shape] = (shapes.get(shape, (0, None))[0] + count,
+                                 args)
+        elif not key.endswith("@min_q"):
+            captured[f"{key}@serving"] = val
+
+
+def run_serving(lfi, queries: np.ndarray, *, device: str = "cuda",
+                scratch: str | None = None, out_dir: str | None = None,
+                n_requests: int = 2048, rate: float = 2000.0,
+                n_det: int = 1024, batch: int = 64,
+                captured: dict | None = None, label: str = "") -> dict:
+    """The serving phase on a built index: the checkpoint round trip
+    (``check_checkpoint_round_trip``), then ``launch/serve.py --arch
+    leafi`` in this process on that checkpoint (cold start, warmup, a
+    serial open-loop trace of ``n_requests`` at ``rate`` on the measured
+    clock, shadow audit, health board, the metrics, trace and health
+    dumps, one explain report): every request answered, the recall of
+    each target group printed beside its n, the Prometheus text parsing,
+    the Chrome trace holding ``serve.dispatch`` and ``serve.harvest``
+    spans; then the pipelined/serial determinism
+    (``check_serving_determinism``) and the breakdown of a served batch
+    (``serving_breakdown``).  The launch counters are zeroed at the start
+    and read at the end (the replay's by instance: warm start runs its
+    bound instance).  The launcher's and the determinism's served
+    batches' kernel calls (at most ``batch`` queries), and every
+    ``box_lb`` shape of theirs, are captured into ``captured``
+    (``_merge_serving``), for ``check_kernels`` to hold at the served
+    shapes."""
+    import shutil
+    import torch
+    from repro_torch import serving
+    on_card = torch.device(device).type == "cuda"
+    scratch = scratch or os.path.join(ROOT, ".chip_scratch")
+    out_dir = out_dir or os.path.join(ROOT, "chiprun_out")
+    os.makedirs(scratch, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(scratch, f"{label.strip() or 'index'}_serving_ckpt")
+    tag = label.strip().replace(" ", "_") or "index"
+    dumps = {k: os.path.join(out_dir, f"serving_{tag}_{k}")
+             for k in ("health.json", "metrics.prom", "trace.json",
+                       "main.log")}
+    _zero_counters()
+    t0 = time.perf_counter()
+    ckpt = check_checkpoint_round_trip(lfi, queries[:256], path, device,
+                                       label)
+    argv = list(SERVE_FLAGS) + [
+        "--ckpt", path, "--device", device, "--requests", str(n_requests),
+        "--rate", str(rate), "--batch", str(batch),
+        "--health-dump", dumps["health.json"],
+        "--metrics-dump", dumps["metrics.prom"],
+        "--trace-dump", dumps["trace.json"]]
+    # the launcher's oracle and shadow searches (more rows than a bucket)
+    # count only among box_lb's shapes
+    served: dict = {}
+    try:
+        with capture_largest_inputs(served, bound=True, max_q=batch):
+            report, printed, main_s = _serve_main(argv, dumps["main.log"])
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert report["n_requests"] == n_requests and sorted(
+        report["completions"]) == list(range(n_requests)), \
+        f"{label}serving: not every request was answered"
+    recall_lines = [ln for ln in printed.splitlines()
+                    if ln.strip().startswith("target ")
+                    and "achieved recall" in ln and "(n=" in ln]
+    groups = report["recall_by_target"]
+    assert len(recall_lines) == len(groups) == 3 and sum(
+        g["n"] for g in groups.values()) == n_requests, \
+        (label, recall_lines, groups)
+    with open(dumps["metrics.prom"]) as fh:
+        n_prom = _prom_samples(fh.read(), label)
+    with open(dumps["trace.json"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"serve.dispatch", "serve.harvest"} <= names, \
+        f"{label}serving: the Chrome trace lacks the serve spans"
+    n_dispatch = sum(e.get("name") == "serve.dispatch" for e in events)
+    with open(dumps["health.json"]) as fh:
+        health = json.load(fh)
+    for ln in printed.splitlines():
+        if ln.startswith(("cold start", "warmed", "served", "  target",
+                          "shadow audit", "filters needing")):
+            log(f"{label}serve.main: {ln.strip()}")
+    log(f"{label}serve.main: {main_s:.2f} s in all; every one of "
+        f"{n_requests} requests answered; {n_prom} Prometheus samples "
+        f"parse; the Chrome trace holds {n_dispatch} serve.dispatch and "
+        f"{sum(e.get('name') == 'serve.harvest' for e in events)} "
+        f"serve.harvest spans ({len(events)} events); the health dump "
+        f"{health['n_leaves']} leaves, {health['window_batches']} audited "
+        f"batches, {len(health['filters_needing_attention'])} flagged; "
+        f"output in {dumps['main.log']}")
+    det = check_serving_determinism(lfi, queries, device=device,
+                                    n_requests=n_det, batch=batch,
+                                    captured=served, label=label)
+    _merge_serving({} if captured is None else captured, served)
+    trace = serving.poisson_trace(queries, rate=rate, n_requests=n_requests,
+                                  targets=(0.9, 0.95, 0.99), ks=(5,), seed=0)
+    parts = serving_breakdown(lfi, trace, device=device, batch=batch,
+                              label=label)
+    launches, modes = _launch_counters(), _replay_mode_launches()
+    _check_launches(launches, _instance_launches(), SERVING_KERNELS,
+                    f"{label}serving", on_card)
+    log(f"replay launches by instance on the {label}serving path: "
+        + json.dumps(modes))
+    if on_card:
+        assert modes["bound"] > 0 and modes["traced"] == 0, modes
+    log(f"{label}serving phase {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "replay_modes": modes,
+            "checkpoint": ckpt, "report": {
+                k: report[k] for k in ("n_requests", "n_batches",
+                                       "throughput_qps", "p50", "p95",
+                                       "p99", "recall_by_target")},
+            "determinism": det, "breakdown": parts}
 
 
 def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
@@ -4032,6 +4479,40 @@ def _fused_beside_raw(args, power: str) -> dict:
     return {k: res[k] for k in ("ms", "graph_ms", "max_abs_err")}
 
 
+def _serving_calls(name: str, captured: dict, power: str) -> dict:
+    """Kernel ``name`` at the serving phase's served batches
+    (``_merge_serving``), each call held against its plain version and
+    timed: its largest, the probe's (``leaf_topk``) and the warm-start
+    bound instance's (``replay``: held bitwise as called, timed from a
+    CUDA graph beside its bytes bound)."""
+    out = {}
+    for key, what in ((f"{name}@serving", "largest"),
+                      (f"{name}@probe@serving", "probe")):
+        if key in captured:
+            out[what] = _check_call(
+                name, captured[key][1],
+                f"{name} (the served batches' {what} call)", power)
+    if name == "replay" and "replay@bound@serving" in captured:
+        from repro_torch.analysis import roofline
+        from repro_torch.kernels.replay import kernel as replay_kernel
+        from repro_torch.kernels.replay import ref as replay_ref
+        args, ub = captured["replay@bound@serving"][1]
+        label = "replay (the served batches' largest warm-start call)"
+        held = _hold_replay(args, label, bsf_ub=ub, instances=False)
+        leaf_d, _, d_lb, d_F, order, k = args
+        bound_ms = replay_ref.bound_bytes(leaf_d, d_lb, d_F, order, k,
+                                          bsf_ub=ub) \
+            / roofline.H100.hbm_bw * 1e3
+        graph_ms = _graph_ms(lambda: replay_kernel.replay_cascade_cuda(
+            *args, bsf_ub=ub))
+        log(f"kernel {label} ({held['instance']}, the bound instance): "
+            f"{graph_ms:.4f} ms from a CUDA graph, bytes bound "
+            f"{bound_ms:.5f} ms (peaks at 700 W; card limit {power})")
+        out["bound_instance"] = {**held, "graph_ms": graph_ms,
+                                 "bound_ms": bound_ms}
+    return out
+
+
 def check_kernels(captured: dict, launches: dict, power: str) -> list:
     """Each kernel against its plain version on the main paths' inputs; the
     fused entries and ``box_lb`` also on their call with the fewest queries
@@ -4040,8 +4521,9 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     side of the stream design's limit, ``filter_mlp`` beside the fused
     float32 kernel at its own call, the replay also on calibration's
     largest call, the candidate pass also in ``direct`` form and on the
-    probe's largest call; the redesigned kernels also at ragged shapes
-    (untimed)."""
+    probe's largest call; the serving phase's kernels also at the served
+    batches' calls (``_serving_calls``); the redesigned kernels also at
+    ragged shapes (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.leaf_topk import ref as leaf_ref
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls(),
@@ -4106,6 +4588,9 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 "instances": _replay_instance_times(cal, label)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
+        serving_calls = _serving_calls(name, captured, power)
+        if serving_calls:
+            row["serving_calls"] = serving_calls
         if name == "early_walk":
             row.update(layout=res["layout"], counts=res["counts"],
                        path_calls="every call of both search_early phases "
@@ -4355,6 +4840,9 @@ def main() -> int:
                     e2e["queries"], device="cuda", impls=(None, "pairwise"),
                     label="dstree ")]
     paths.append(traced[-1]["launches"])
+    traced.append(phase("serving", run_serving, e2e["lfi"], e2e["queries"],
+                        device="cuda", captured=captured, label="dstree "))
+    paths.append(traced[-1]["launches"])
     n_filters = len(e2e["lfi"].leaf_ids)
     del e2e                               # the DSTree index leaves the card
     paths.append(phase("filter suite", run_filter_suite, n_filters,
@@ -4384,7 +4872,8 @@ def main() -> int:
     log("launches on all paths: " + json.dumps(launches))
     rows = phase("kernel checks", check_kernels, captured, launches, power)
     # the replay's launches by instance: the bound and traced ones launch
-    # only in the trace-and-audit phases, the plain one everywhere else
+    # only in the trace-and-audit phases and (bound, under warm start) the
+    # serving phase, the plain one everywhere else
     bound = sum(t["replay_modes"]["bound"] for t in traced)
     n_traced = sum(t["replay_modes"]["traced"] for t in traced)
     for row in rows:

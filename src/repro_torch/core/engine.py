@@ -477,3 +477,37 @@ def nn_distance_own_leaf(series: torch.Tensor, leaf_start: torch.Tensor,
         d = l2_ops.slab_l2(local_queries[c0:c0 + chunk], slabs, dist_impl)
         out[c0:c0 + chunk] = l2_ops.slab_masked_min(d, valid)[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# survivor capacity (numpy only): the serving telemetry's suggestion
+# ---------------------------------------------------------------------------
+
+
+def default_max_survivors(n_leaves: int) -> int:
+    """Default fixed survivor capacity of a fixed-width compaction: an
+    eighth of the leaf slots, rounded up to a power of two, clamped to
+    ``next_pow2(n_leaves)``.  :func:`tuned_max_survivors` replaces this
+    static guess with a percentile of observed survivor counts."""
+    return min(next_pow2(max(n_leaves // 8, 1)), next_pow2(n_leaves))
+
+
+def tuned_max_survivors(survivor_counts, n_leaves: int,
+                        pct: float = 99.0, min_samples: int = 0) -> int:
+    """Survivor capacity from observed per-query survivor counts.
+
+    The ``pct``-th percentile of the counts, rounded up to a power of two
+    (the rounding is the drift headroom), clamped to [1,
+    next_pow2(n_leaves)]; with no observations, :func:`default_max_survivors`.
+    Below ``min_samples`` observations the percentile means little, so the
+    estimate is floored at the static default: a few easy early queries
+    may raise the capacity, never lower it.
+    """
+    counts = np.asarray(survivor_counts)
+    if counts.size == 0:
+        return default_max_survivors(n_leaves)
+    cap = int(np.ceil(np.percentile(counts, pct)))
+    cap = min(next_pow2(max(cap, 1)), next_pow2(n_leaves))
+    if counts.size < max(int(min_samples), 0):
+        cap = max(cap, default_max_survivors(n_leaves))
+    return cap

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package; the entry points run on
+``chip_smoke.py`` imports JAX or the JAX package, nor ``msgpack`` or
+``ml_dtypes``, which the card machine lacks; the entry points run on
 the card unless asked for the CPU (here, without a card, they raise); a
 wrapper given a non-CPU tensor launches its kernel or raises; and
 ``chip_smoke.py``'s end-to-end function runs on the CPU at a tiny size,
@@ -28,7 +29,8 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root == "jax" or root.startswith("jax") or root == "repro"
+    return (root == "jax" or root.startswith("jax")
+            or root in ("repro", "msgpack", "ml_dtypes"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -81,7 +83,7 @@ def _tiny_index():
         device="cpu")
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch import bridge
@@ -97,8 +99,57 @@ def test_entry_points_default_to_the_card():
         bridge.leafi_from_arrays({}, None, [], None)
     with pytest.raises(RuntimeError, match="CUDA"):
         build.requantize_leafi(lfi, "int8")
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingSession, load_index, save_index
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingSession(lfi)
+    save_index(str(tmp_path / "idx"), lfi)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_index(str(tmp_path / "idx"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "leafi", "--ckpt", str(tmp_path / "idx"),
+                    "--requests", "4"])
     # asked for the CPU, the same calls run
     assert lfi.search(S[:2], device="cpu").ids.shape == (2, 1)
+    assert load_index(str(tmp_path / "idx"), device="cpu").index.n_series \
+        == lfi.index.n_series
+    assert ServingSession(lfi, device="cpu").search_exact(S[:2]).ids.shape \
+        == (2, 1)
+
+
+def test_serve_entry_point_cold_starts_on_the_cpu(tmp_path, capsys):
+    """``launch.serve.main`` with ``--device cpu`` cold-starts from a small
+    checkpoint written by the JAX package (a DSTree index without filters)
+    and answers every request of its trace; the LM archs and ``--dist``
+    exit naming the ROADMAP items they wait for."""
+    from repro.core import build as ref_build
+    from repro.core import tree as ref_tree
+    from repro.serving import save_index as ref_save_index
+    from repro_torch.launch import serve
+    S = np.random.default_rng(0).standard_normal((400, 32)).astype(
+        np.float32).cumsum(1)
+    ref = ref_build.LeaFiIndex(
+        index=ref_tree.build_dstree(S, leaf_capacity=32), filter_params=None,
+        leaf_ids=np.zeros(0, np.int64), tuner=None,
+        config=ref_build.LeaFiConfig(leaf_capacity=32), build_report={})
+    ckpt = str(tmp_path / "ref_ckpt")
+    ref_save_index(ckpt, ref)
+    report = serve.main(["--arch", "leafi", "--device", "cpu", "--ckpt",
+                         ckpt, "--requests", "32", "--batch", "8", "--rate",
+                         "400", "--warm-start", "--shadow-rate", "0.25",
+                         "--explain", "3", "--summary"])
+    assert report["n_requests"] == 32
+    assert sorted(report["completions"]) == list(range(32))
+    assert sum(c["n"] for c in report["recall_by_target"].values()) == 32
+    printed = capsys.readouterr().out
+    assert f"cold start from {ckpt}" in printed
+    assert "served 32 requests in" in printed
+    with pytest.raises(SystemExit, match="ROADMAP A10"):
+        serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP A10"):
+        serve.main([])
+    with pytest.raises(SystemExit, match="ROADMAP A8"):
+        serve.main(["--arch", "leafi", "--dist", "--device", "cpu"])
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -264,8 +315,8 @@ def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
 
 
 def test_new_modules_are_checked():
-    """The import checks above reach the port's analysis, bench and obs
-    modules."""
+    """The import checks above reach the port's analysis, bench, obs,
+    checkpoint, serving and launch modules."""
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in
              p.parents}
     for mod in ("analysis/roofline.py", "bench/filters_bench.py",
@@ -280,7 +331,13 @@ def test_new_modules_are_checked():
                 "bench/lstm_designs.py", "bench/backbone_sources.py",
                 "obs/__init__.py", "obs/trace.py", "obs/audit.py",
                 "obs/metrics.py", "obs/spans.py", "obs/export.py",
-                "obs/health.py", "obs/explain.py"):
+                "obs/health.py", "obs/explain.py",
+                "checkpoint/__init__.py", "checkpoint/_msgpack.py",
+                "checkpoint/manager.py", "serving/__init__.py",
+                "serving/batcher.py", "serving/session.py",
+                "serving/shadow.py", "serving/telemetry.py",
+                "serving/warmstart.py", "launch/__init__.py",
+                "launch/serve.py"):
         assert mod in names
 
 
@@ -300,6 +357,20 @@ def test_spans_pass_through_is_torch_not_jax():
     assert set(names) <= set(obs.__all__)
     for name in names:
         assert hasattr(obs, name), name
+
+
+def test_serving_exports_the_references_names():
+    """``repro_torch.serving`` exports every name the reference's
+    ``repro.serving`` imports into its package, except
+    ``DistributedExecutor``, which waits for the distributed search."""
+    from repro_torch import serving
+    ref = REPO / "src" / "repro" / "serving" / "__init__.py"
+    names = {a.asname or a.name for node in ast.parse(ref.read_text()).body
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert "DistributedExecutor" in names
+    for name in names - {"DistributedExecutor"}:
+        assert hasattr(serving, name), name
+    assert not hasattr(serving, "DistributedExecutor")
 
 
 def test_chip_smoke_bounds_use_the_roofline_module():

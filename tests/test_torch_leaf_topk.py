@@ -431,8 +431,9 @@ def test_chip_smoke_leaf_topk_bound():
 def test_chip_smoke_captures_the_pass_and_the_probe(indexes, queries_small,
                                                     monkeypatch):
     """The capture keeps the largest batch call of the pass (by list slots
-    x kk: a k = 5 call outranks a k = 1 one) and the probe's apart; the
-    wrapper's counter counts every launch."""
+    x kk: a k = 5 call outranks a k = 1 one) and the probe's apart, and
+    under ``max_q`` only calls of that many queries at most; the wrapper's
+    counter counts every launch."""
     smoke = _load_smoke()
     _, index = indexes
     monkeypatch.setattr(leaf_kernel, "leaf_topk_cuda", ref.leaf_topk)
@@ -450,6 +451,15 @@ def test_chip_smoke_captures_the_pass_and_the_probe(indexes, queries_small,
     assert set(captured) == {"leaf_topk", "leaf_topk@probe"}
     assert captured["leaf_topk"][1][6] == 5 and captured["leaf_topk"][1][11]
     assert captured["leaf_topk@probe"][1][4].shape == (8, 1)
+    # ``max_q`` reads the pass's queries (its fourth argument), not the
+    # series: 8 queries are kept under 8 and dropped under 4
+    for max_q, keys in ((8, {"leaf_topk", "leaf_topk@probe"}), (4, set())):
+        some: dict = {}
+        with smoke.capture_largest_inputs(some, max_q=max_q):
+            engine.run_cascade(index.series, index.leaf_start,
+                               index.leaf_size, q, d_lb, d_F, k=5,
+                               max_leaf=index.max_leaf_size)
+        assert set(some) == keys, max_q
     assert leaf_kernel.leaf_topk_cuda is ref.leaf_topk
 
 

@@ -580,6 +580,34 @@ def test_chip_smoke_capture_keeps_plain_replay_calls(monkeypatch):
     assert captured["replay"][1][5] == 1
 
 
+def test_chip_smoke_capture_keeps_bound_calls_when_asked(monkeypatch):
+    """With ``bound=True`` (the serving phase's capture) the largest call
+    through the bound instance is kept apart as ``replay@bound``, with its
+    bound; a traced call still passes through unrecorded, and with
+    ``max_q`` so does a call of more rows."""
+    smoke = _load_smoke()
+    monkeypatch.setattr(replay_kernel, "replay_cascade_cuda",
+                        ref.replay_cascade)
+    arrays = _torch(_inputs(4, 3, 30, 5, shuffled=False))
+    ub = _bound(4, 3)
+    captured: dict = {}
+    with smoke.capture_largest_inputs(captured, bound=True):
+        replay_kernel.replay_cascade_cuda(*arrays, 1, bsf_ub=ub)
+        replay_kernel.replay_cascade_cuda(*arrays, 5, bsf_ub=ub)
+        replay_kernel.replay_cascade_cuda(*arrays, 5, bsf_ub=ub, trace=True)
+        replay_kernel.replay_cascade_cuda(*arrays, 1, bsf_ub=None)
+    assert set(captured) == {"replay", "replay@bound"}
+    args, got_ub = captured["replay@bound"][1]
+    assert args[5] == 5 and got_ub is ub
+    assert captured["replay"][1][5] == 1
+    # with max_q below the call's rows, nothing is kept
+    few: dict = {}
+    with smoke.capture_largest_inputs(few, bound=True, max_q=2):
+        replay_kernel.replay_cascade_cuda(*arrays, 5, bsf_ub=ub)
+        replay_kernel.replay_cascade_cuda(*arrays, 1, bsf_ub=None)
+    assert not few
+
+
 def test_replay_layouts_reads_either_entry(tmp_path):
     """``bench/replay_layouts.py`` binds the product's 19-argument entry and
     an older source's 16-argument one (no bound, no trace counters), and
