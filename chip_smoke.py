@@ -131,7 +131,23 @@
    ``serve_form_s`` and ``serve_exec_s`` p50/p95/p99 beside the medians
    of ``BsfCache.seed``, ``tuner.offsets``, the board's refresh and the
    ``index.order`` copy.  The phase's launches join the paths' counts
-   (warm start runs the replay's bound instance).
+   (warm start runs the replay's bound instance).  Then the leaf-sharded
+   search (``run_distribution``, ``repro_torch.core.distributed``): the
+   index checkpointed, 4 ranks spawned on the one card over ``gloo``
+   (``torch.multiprocessing``, a rank's exception fails the script): a 1
+   x 4 mesh at exact, 0.99 and per-query targets in three forms (compact
+   in the default matmul form, compact and scan in the direct form), a
+   traced and audited batch, a 2 x 2 mesh at 0.99, a
+   ``DistributedExecutor`` session over 512 requests (k = 1) serially
+   and with ``pipeline=2``, ``serve.py --dist``; then a world of one rank
+   over ``nccl`` on the whole index.  Held: the direct forms' exact nn
+   within rtol 2e-6 of the single-card direct search (the default form's
+   within twice the candidate pass's limit), no distance below exact -
+   1e-4, every summed total within 8 of an in-process oracle over the
+   same shards, the trace's identity, the audit's padding slots empty,
+   serial == pipelined; the replay's seeded instance bitwise at the
+   phase's largest call (captured on rank 0, timed beside its bound) and
+   at ``RAGGED_SEEDED``.  The ranks' launches join the paths' counts.
 6. The filter-inference suite (``repro_torch.bench.filters_bench``) at its
    own sweep (F = 64 .. 4096, Q = 128, m = h = 128), then once at the DSTree
    index's shape (its F, Q = 256, m = h = 256): the per-filter
@@ -2403,6 +2419,703 @@ def run_serving(lfi, queries: np.ndarray, *, device: str = "cuda",
             "determinism": det, "breakdown": parts}
 
 
+#: the distribution phase: its ranks (on one card, over gloo), the
+#: kernels its path must launch, its collectives' timeout, the targets
+#: of its 1 x N mesh's batches
+DIST_RANKS = 4
+DIST_KERNELS = ("box_lb", "fused_filter_mlp", "replay", "leaf_topk")
+DIST_TIMEOUT_S = 300.0
+DIST_TARGETS = ("exact", "0.99", "per-query")
+#: the reference tests' cross-program searched-count slack
+DIST_SLACK = 8
+#: the phase's search forms: (name, strategy, distance form).  On the card
+#: the default candidate pass is the split-TF32 matmul form, and the probe
+#: (the pass's warp instance) and the survivor pass (its wgmma instance)
+#: may compute one pair's distance apart by up to the pass's limit; the
+#: direct forms compute every distance as the in-process oracle does, so
+#: that the reference's limits (rtol 2e-6, ``DIST_SLACK``) apply to them
+DIST_FORMS = (("compact", "compact", None),
+              ("compact-direct", "compact", "direct"),
+              ("scan", "scan", "direct"))
+
+
+def _dist_rows(lfi, n: int, per_query: np.ndarray) -> dict:
+    """(n, L) conformal offset rows of each of ``DIST_TARGETS``: +inf
+    (exact: no filter fires), every query at 0.99, the per-query
+    targets."""
+    from repro_torch.core import conformal
+    L = lfi.index.n_leaves
+    return {"exact": np.full((n, L), np.inf, np.float32),
+            "0.99": conformal.scatter_offsets(
+                lfi.tuner, lfi.leaf_ids, L, np.full(n, 0.99)),
+            "per-query": conformal.scatter_offsets(
+                lfi.tuner, lfi.leaf_ids, L, np.asarray(per_query))}
+
+
+def _timed_run(run, dev, *args) -> tuple:
+    """(outputs, host seconds) of one sharded search call, synchronized."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = run(*args)
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _capture_seeded(keep: dict):
+    """Wrap the replay kernel's wrapper so that the largest seeded call
+    (rows x positions x k), its keywords too, is kept on the host in
+    ``keep``; returns the undo."""
+    import torch
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    fn = replay_kernel.replay_cascade_cuda
+
+    def host(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        if kw.get("bsf0") is not None or kw.get("leaf_valid") is not None:
+            size = args[2].numel() * args[5]
+            if size > keep.get("size", 0):
+                keep.update(size=size, args=[host(a) for a in args],
+                            kw={n: host(v) for n, v in kw.items()})
+        return out
+    replay_kernel.replay_cascade_cuda = wrapped
+
+    def undo():
+        replay_kernel.replay_cascade_cuda = fn
+    return undo
+
+
+def _dist_searches(lfi, q: np.ndarray, rows: dict, world: int,
+                   job: dict) -> tuple:
+    """A rank's sharded searches (see :func:`run_distribution`): the 1 x
+    ``world`` mesh in every form at every target and a traced and audited
+    batch, then the 2 x ``world``/2 mesh at 0.99; returns (outputs as
+    numpy, host walls, the 1 x ``world`` mesh)."""
+    from repro_torch.core import distributed
+    dev = job["device"]
+    inf_ub = np.full(len(q), np.inf, np.float32)
+    out, walls = {}, {}
+    t = job["timeout_s"]
+    mesh = distributed.make_search_mesh(1, world, device=dev, timeout_s=t)
+    sharded = distributed.shard_leafi(lfi, world, device=dev)
+    for form, strategy, impl in DIST_FORMS:
+        run = distributed.make_distributed_search(
+            mesh, sharded, strategy=strategy, dist_impl=impl,
+            per_query_offsets=True, device=dev)
+        for name in DIST_TARGETS:
+            (nn, tot), wall = _timed_run(run, dev, q, rows[name], inf_ub)
+            out[f"1x{world}/{form}/{name}/nn"] = nn.cpu().numpy()
+            out[f"1x{world}/{form}/{name}/tot"] = tot.cpu().numpy()
+            walls[f"1x{world}/{form}/{name}"] = wall
+    run = distributed.make_distributed_search(
+        mesh, sharded, strategy="compact", per_query_offsets=True,
+        trace=True, audit=True, device=dev)
+    (nn, tot, tr, fa), walls["traced"] = _timed_run(run, dev, q,
+                                                     rows["0.99"], inf_ub)
+    out["traced/nn"], out["traced/tot"] = nn.cpu().numpy(), tot.cpu().numpy()
+    out["traced/leaf_size"] = sharded.leaf_size
+    for name, v in zip(tr._fields, tr):
+        out[f"traced/trace/{name}"] = v.cpu().numpy()
+    for name, v in zip(fa._fields, fa):
+        out[f"traced/audit/{name}"] = v.cpu().numpy()
+    del run, sharded
+    if world % 2 == 0 and world > 2:
+        mesh2 = distributed.make_search_mesh(2, world // 2, device=dev,
+                                             timeout_s=t)
+        sharded = distributed.shard_leafi(lfi, world // 2, device=dev)
+        for form, strategy, impl in DIST_FORMS:
+            run = distributed.make_distributed_search(
+                mesh2, sharded, strategy=strategy, dist_impl=impl,
+                per_query_offsets=True, device=dev)
+            (nn, tot), wall = _timed_run(run, dev, q, rows["0.99"], inf_ub)
+            out[f"2x{world // 2}/{form}/0.99/nn"] = nn.cpu().numpy()
+            out[f"2x{world // 2}/{form}/0.99/tot"] = tot.cpu().numpy()
+            walls[f"2x{world // 2}/{form}/0.99"] = wall
+        del run, sharded
+    return out, walls, mesh
+
+
+def _dist_rank_work(rank: int, world: int, job: dict,
+                    calls: dict | None = None) -> dict:
+    """A rank's share of the distribution phase (see
+    :func:`run_distribution`): the searches, the executor session and
+    ``serve.main --dist``; rank 0 writes the outputs to ``job["dir"]``.
+    With ``calls``, the sharded searches' kernel calls (and not the
+    single-index oracle that ``serve.main`` runs) are captured into it
+    (``capture_largest_inputs``)."""
+    import contextlib as ctx
+    import io
+    from repro_torch import serving
+    from repro_torch.launch import serve
+    from repro_torch.serving.session import load_index
+    d, dev = job["dir"], job["device"]
+    lfi = load_index(job["ckpt"], device="cpu")
+    q = np.load(os.path.join(d, "queries.npy"))
+    rows = _dist_rows(lfi, len(q), np.load(os.path.join(d, "per_query.npy")))
+    with (contextlib.nullcontext() if calls is None
+          else capture_largest_inputs(calls)):
+        out, walls, mesh = _dist_searches(lfi, q, rows, world, job)
+    # the executor session: rank 0 serves, the rest follow
+    trace = serving.poisson_trace(q, rate=2000.0,
+                                  n_requests=job["n_requests"],
+                                  targets=(0.9, 0.95, 0.99), ks=(1,), seed=7)
+    batch = job["batch"]
+
+    def service(b):
+        return 4e-3 * max(b.bucket / batch, 0.25)
+    served = {}
+    ex = serving.DistributedExecutor(lfi, mesh, device=dev)
+    for pipeline in (0, 2):
+        if rank:
+            ex.follow()
+            continue
+        session = serving.ServingSession(lfi, warm_start=True, executor=ex,
+                                         device=dev)
+        try:
+            session.warmup(max_batch=batch, ks=(1,), queries=q)
+            t0 = time.perf_counter()
+            served[pipeline] = session.serve(
+                trace, batcher=serving.MicroBatcher(max_batch=batch,
+                                                    max_wait=0.02),
+                service_time=service, pipeline=pipeline)
+            walls[f"executor pipeline={pipeline}"] = time.perf_counter() - t0
+        finally:
+            ex.close()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(buf):
+        main_report = serve.main(job["serve_argv"])
+    walls["serve.main"] = time.perf_counter() - t0
+    if rank:
+        return {"walls": walls}
+    with open(os.path.join(d, "serve_main.log"), "w") as fh:
+        fh.write(buf.getvalue())
+    np.savez(os.path.join(d, "out.npz"), **out)
+    host = set(SERVE_HOST_KEYS)
+    with open(os.path.join(d, "served.json"), "w") as fh:
+        json.dump({
+            "batches": [[{k: v for k, v in b.items() if k not in host}
+                         for b in served[p]["batches"]] for p in (0, 2)],
+            "results": [{str(r): c["result"] for r, c in
+                         served[p]["completions"].items()} for p in (0, 2)],
+            "main": {k: main_report[k] for k in ("n_requests", "n_batches")},
+            "main_dist": {k: main_report["dist"][k] for k in (
+                "n_requests", "n_batches", "throughput_qps", "p50", "p99",
+                "recall_by_target")}}, fh, default=float)
+    return {"walls": walls}
+
+
+def _dist_rank(rank: int, world: int, job_path: str) -> None:
+    """One spawned rank of the distribution phase: its device (``rank %
+    device_count``: all on one card), the ``gloo`` group through a
+    ``file://`` store, its launch counters zeroed before its work and
+    written after it to ``rank<r>.json``; rank 0 also keeps the largest
+    seeded replay call (``seeded_call.pt``) and the sharded searches'
+    largest call of each other kernel, the probe's apart
+    (``dist_calls.pt``)."""
+    import torch
+    from repro_torch.core import distributed
+    with open(job_path) as fh:
+        job = json.load(fh)
+    if job["device"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    distributed.init_process_group(
+        "gloo", rank, world, "file://" + os.path.join(job["dir"], "store"),
+        timeout_s=job["timeout_s"])
+    keep: dict = {}
+    calls: dict = {}
+    undo = _capture_seeded(keep) if rank == 0 else (lambda: None)
+    try:
+        _zero_counters()
+        res = _dist_rank_work(rank, world, job, calls if rank == 0 else None)
+        res.update(launches=_launch_counters(), modes=_replay_mode_launches(),
+                   by_instance=_instance_launches())
+    finally:
+        undo()
+        torch.distributed.destroy_process_group()
+    if keep:
+        torch.save({"args": keep["args"], "kw": keep["kw"]},
+                   os.path.join(job["dir"], "seeded_call.pt"))
+    if rank == 0:
+        _save_phase_calls(calls, os.path.join(job["dir"], "dist_calls.pt"))
+    with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+#: the calls a distribution rank keeps for ``check_kernels`` (the seeded
+#: replay's are held apart, by ``run_seeded_replay``)
+DIST_CALL_KEYS = ("box_lb", "fused_filter_mlp", "leaf_topk",
+                  "leaf_topk@probe")
+
+
+def _save_phase_calls(calls: dict, path: str) -> None:
+    """The ``DIST_CALL_KEYS`` entries of ``calls`` (from
+    ``capture_largest_inputs``), their tensors on the host, to ``path``."""
+    import torch
+
+    def host(v):
+        return v.cpu() if torch.is_tensor(v) else v
+    torch.save({k: (calls[k][0], [host(a) for a in calls[k][1]])
+                for k in DIST_CALL_KEYS if k in calls}, path)
+
+
+def _load_phase_calls(path: str, captured: dict, phase: str,
+                      device: str) -> list:
+    """The calls :func:`_save_phase_calls` wrote, on ``device``, filed in
+    ``captured`` as ``<key>@<phase>`` (``check_kernels`` holds them);
+    returns the keys."""
+    import torch
+    calls = torch.load(path)
+    for key, (size, args) in calls.items():
+        captured[f"{key}@{phase}"] = (size, tuple(
+            a.to(device) if torch.is_tensor(a) else a for a in args))
+    return sorted(calls)
+
+
+def _local_shards(lfi, n_shards: int, device: str) -> list:
+    """Every shard of ``n_shards`` on ``device`` (for :func:`_dist_oracle`)."""
+    from repro_torch.core import distributed
+    sharded = distributed.shard_leafi(lfi, n_shards, device=device)
+    return [sharded.local(s) for s in range(n_shards)]
+
+
+def _dist_oracle(shards: list, queries: np.ndarray,
+                 rows: np.ndarray) -> tuple:
+    """The two-phase exchange over ``shards`` (:func:`_local_shards`) in
+    this process, the reference test's oracle: per shard the pruning
+    inputs and the probe (``direct``), the least probe as the seed, per
+    shard the masked scan; returns (nn, the summed searched counts) as
+    numpy."""
+    import torch
+    from repro_torch.core import distributed, engine
+    device = shards[0].series.device
+    q = torch.as_tensor(queries, device=device)
+    off = torch.as_tensor(rows, device=device)
+    inputs = [distributed._shard_pruning_inputs(sh, q, sh.query_coords(q),
+                                                off) for sh in shards]
+    bsf0 = torch.stack([engine.probe_best_leaf(
+        sh.series, sh.leaf_start, sh.leaf_size, lb, q, sh.max_leaf,
+        "direct") for sh, (lb, _) in zip(shards, inputs)]).amin(dim=0)
+    nn, tot = [], []
+    for sh, (lb, d_F) in zip(shards, inputs):
+        b, n = engine.masked_bsf_scan(sh.series, sh.leaf_start,
+                                      sh.leaf_size, lb, d_F, q, sh.max_leaf,
+                                      bsf0)
+        nn.append(b)
+        tot.append(n)
+    return (torch.stack(nn).amin(dim=0).cpu().numpy(),
+            torch.stack(tot).sum(dim=0).cpu().numpy())
+
+
+def _dist_close(nn, tot, want_nn, want_tot, tag: str,
+                direct: bool = True) -> dict:
+    """The searched counts within ``DIST_SLACK`` of the other run's, and nn
+    within rtol 2e-6 (``direct``: both computed in the direct form) or
+    within ``_pass_limit``; returns the gaps."""
+    gap = int(np.abs(tot.astype(np.int64) - want_tot.astype(np.int64)).max())
+    assert gap <= DIST_SLACK, (tag, gap)
+    if direct:
+        np.testing.assert_allclose(nn, want_nn, rtol=2e-6, err_msg=tag)
+    else:
+        assert np.abs(nn - want_nn).max() <= _pass_limit(want_nn), tag
+    return {"nn_rel": float(np.max(np.abs(nn - want_nn)
+                                   / np.maximum(np.abs(want_nn), 1e-30))),
+            "searched_gap": gap}
+
+
+def _pass_limit(dists: np.ndarray) -> float:
+    """Two candidate-pass computations of one distance, each within the
+    pass's limit (``KERNELS["leaf_topk"]``: atol + rtol · max) of the plain
+    matmul form, lie within twice that of each other."""
+    atol, rtol = KERNELS["leaf_topk"][2]
+    return 2 * (atol + rtol * float(np.abs(dists).max()))
+
+
+RAGGED_SEEDED = ((256, 4096, 1, 1, "levels"), (64, 3000, 5, 5, "levels"),
+                 (33, 500, 5, 5, "all invalid"), (4096, 4096, 1, 1,
+                                                  "calibration"))
+
+
+def seeded_replay_calls(device: str = "cuda") -> list:
+    """Synthetic seeded replay calls, (label, args, keywords): bounds,
+    predictions and leaf values from a few levels (ties), ±inf and NaN at
+    3% of the bounds and predictions, +inf at 3% of the leaf values, seeds
+    from the levels with +inf on every third row and, on every third
+    other, below every leaf value, a third of the leaves invalid (none
+    valid in "all invalid"), at k = kk = 1 and 5 and calibration's shape
+    (Q = 4096, k = kk = 1); numpy seed 11."""
+    import torch
+    rng = np.random.default_rng(11)
+    levels = np.float32([0.25, 0.5, 1.0, 1.5, 2.0, 3.0])
+    calls = []
+    for Q, L, k, kk, kind in RAGGED_SEEDED:
+        leaf_d = np.sort(rng.choice(levels, (Q, L, kk)), axis=-1)
+        leaf_d[rng.random(leaf_d.shape) < 0.03] = np.inf
+        d_lb = rng.choice(levels, (Q, L)) * np.float32(0.8)
+        d_F = rng.choice(levels, (Q, L)) * np.float32(0.9)
+        for a in (d_lb, d_F):
+            for v in (np.inf, -np.inf, np.nan):
+                a[rng.random(a.shape) < 0.03] = v
+        bsf0 = rng.choice(levels, Q) * np.float32(1.2)
+        bsf0[::3], bsf0[1::3] = np.inf, 0.2
+        valid = (np.zeros(L, bool) if kind == "all invalid"
+                 else rng.random(L) > 0.33)
+        order = np.argsort(d_lb, axis=1, kind="stable")
+
+        def t(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+        args = (t(leaf_d, torch.float32),
+                t(rng.integers(0, 1 << 30, (Q, L, kk))),
+                t(d_lb, torch.float32), t(d_F, torch.float32), t(order), k)
+        calls.append((f"{Q} x {L}, k={k}, kk={kk}, {kind}", args,
+                      {"bsf0": t(bsf0, torch.float32),
+                       "leaf_valid": t(valid)}))
+    return calls
+
+
+def _hold_seeded(args, kw: dict, label: str) -> dict:
+    """One seeded replay call as made, and again with a bound
+    (``replay_bound``) and the trace (the seeded traced instance), each
+    bitwise equal to the plain loop's outputs on the card."""
+    import torch
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    from repro_torch.kernels.replay import ref as replay_ref
+    kw = {**kw, "bsf_ub": kw.get("bsf_ub"), "trace": bool(kw.get("trace"))}
+    variants = [("as called", kw),
+                ("bound and trace", {**kw, "bsf_ub": replay_bound(args),
+                                     "trace": True})]
+    for name, call_kw in variants:
+        got = replay_kernel.replay_cascade_cuda(*args, **call_kw)
+        want = replay_ref.replay_cascade(*args, **call_kw)
+        torch.cuda.synchronize()
+        same = [_bitwise_equal(g, w) for g, w in zip(got, want)]
+        mode = replay_kernel.mode(call_kw["bsf_ub"], call_kw["trace"], True)
+        log(f"kernel replay (seeded) {label} ({_replay_instance(args)}; "
+            f"{name}: the {mode} instance): bitwise equal per output "
+            f"{same}")
+        assert len(got) == len(want) and all(same), \
+            f"the seeded replay at {label} ({name}) disagrees"
+    return {"shapes": label, "max_abs_err": 0.0}
+
+
+def run_seeded_replay(captured_path: str | None, power: str) -> dict:
+    """The seeded replay on the card: the distribution phase's largest
+    seeded call (``captured_path``, from rank 0) held and timed from a
+    CUDA graph beside its bytes bound (``ref.bound_bytes`` with the seed
+    and the mask) and its plain loop's time, then every synthetic call of
+    :func:`seeded_replay_calls` held."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels.replay import kernel as replay_kernel
+    from repro_torch.kernels.replay import ref as replay_ref
+    row: dict = {"held": []}
+    if captured_path and os.path.exists(captured_path):
+        call = torch.load(captured_path)
+        args = tuple(a.cuda() if hasattr(a, "cuda") else a
+                     for a in call["args"])
+        kw = {n: v.cuda() if hasattr(v, "cuda") else v
+              for n, v in call["kw"].items()}
+        label = (" x ".join(str(tuple(a.shape)) for a in args[:2])
+                 + f", k={args[5]}")
+        row["held"].append(_hold_seeded(args, kw, "the phase's largest "
+                                        f"call, {label}"))
+        leaf_d, _, d_lb, d_F, order, k = args
+        nbytes = replay_ref.bound_bytes(
+            leaf_d, d_lb, d_F, order, k, bsf_ub=kw.get("bsf_ub"),
+            bsf0=kw.get("bsf0"), leaf_valid=kw.get("leaf_valid"))
+        row.update(
+            call=label, mode=replay_kernel.mode(kw.get("bsf_ub"), False,
+                                                True),
+            graph_ms=_graph_ms(lambda: replay_kernel.replay_cascade_cuda(
+                *args, **kw)),
+            ms=_time_ms(lambda: replay_kernel.replay_cascade_cuda(
+                *args, **kw)),
+            plain_ms=_time_ms(lambda: replay_ref.replay_cascade(
+                *args, **kw), reps=2),
+            bound_ms=nbytes / roofline.H100.hbm_bw * 1e3)
+        log(f"kernel replay (seeded) at the distribution phase's largest "
+            f"call {label} ({row['mode']} instance): {row['ms']:.4f} ms "
+            f"[{row['graph_ms']:.4f}] from a CUDA graph, bound "
+            f"{row['bound_ms']:.5f} ms (bytes: ref.bound_bytes with the seed "
+            f"and the mask; {row['bound_ms'] / row['graph_ms']:.1%}), plain "
+            f"loop {row['plain_ms']:.1f} ms; {power}")
+    for label, args, kw in seeded_replay_calls():
+        row["held"].append(_hold_seeded(args, kw, label))
+    return row
+
+
+def _dist_nccl(lfi, queries: np.ndarray, rows: dict, exact: dict,
+               scratch: str) -> dict:
+    """A world of one rank over ``nccl`` (a 1 x 1 mesh) on the whole index,
+    in this process: the sharded compact search at exact in the default
+    and the direct form and at 0.99 direct, its launches counted; the
+    direct exact answers within rtol 2e-6 of the single-card direct
+    search's and the default ones within ``_pass_limit`` of the default
+    search's; the direct totals within the slack of a one-shard oracle."""
+    import torch.distributed as tdist
+    from repro_torch.core import distributed
+    path = os.path.join(scratch, "nccl_store")
+    distributed.init_process_group("nccl", 0, 1, "file://" + path,
+                                   timeout_s=DIST_TIMEOUT_S)
+    out = {}
+    try:
+        _zero_counters()
+        mesh = distributed.make_search_mesh(1, 1, device="cuda",
+                                            timeout_s=DIST_TIMEOUT_S)
+        sharded = distributed.shard_leafi(lfi, 1, device="cuda")
+        inf_ub = np.full(len(queries), np.inf, np.float32)
+        for impl, names in ((None, ("exact",)), ("direct", ("exact",
+                                                             "0.99"))):
+            run = distributed.make_distributed_search(
+                mesh, sharded, dist_impl=impl, per_query_offsets=True,
+                device="cuda")
+            for name in names:
+                (nn, tot), wall = _timed_run(run, "cuda", queries,
+                                             rows[name], inf_ub)
+                out[(impl or "default", name)] = (nn.cpu().numpy(),
+                                                  tot.cpu().numpy(), wall)
+        launches = _launch_counters()
+        modes = _replay_mode_launches()
+    finally:
+        tdist.destroy_process_group()
+    np.testing.assert_allclose(out[("direct", "exact")][0], exact["direct"],
+                               rtol=2e-6, err_msg="nccl 1 x 1 exact")
+    got = out[("default", "exact")][0]
+    dev = float(np.abs(got - exact["default"]).max())
+    assert dev <= _pass_limit(exact["default"]), ("nccl default", dev)
+    gaps = {"default exact vs single card": dev}
+    shards = _local_shards(lfi, 1, "cuda")
+    for name in ("exact", "0.99"):
+        o_nn, o_tot = _dist_oracle(shards, queries, rows[name])
+        gaps[f"direct {name}"] = _dist_close(*out[("direct", name)][:2],
+                                             o_nn, o_tot,
+                                             f"nccl 1 x 1 direct {name}")
+    log("distribution: a world of one rank over nccl (1 x 1 mesh, the "
+        "whole index, compact): the direct form's exact nn within rtol "
+        "2e-6 of the single-card direct search, the default form's within "
+        "twice the candidate pass's limit of the default search; against a "
+        f"one-shard oracle {json.dumps(gaps)}; batch walls (s) "
+        + ", ".join(f"{i} {n} {v[2]:.3f}" for (i, n), v in out.items()))
+    return {"launches": launches, "replay_modes": modes, "gaps": gaps}
+
+
+def run_distribution(lfi, queries: np.ndarray, targets: dict, results: dict,
+                     *, device: str = "cuda", n_ranks: int = DIST_RANKS,
+                     n_requests: int = 512, n_serve: int = 128,
+                     batch: int = 64, scratch: str | None = None,
+                     out_dir: str | None = None,
+                     captured: dict | None = None,
+                     label: str = "dstree ") -> dict:
+    """The leaf-sharded search (``core/distributed.py``) on a built index:
+    the index checkpointed (``save_index``), then ``n_ranks`` spawned ranks
+    on one card over ``gloo`` (``torch.multiprocessing``, ``spawn``; a
+    rank's exception fails the phase) run (a) a 1 x N mesh, the queries
+    at exact (+inf offset rows), 0.99 and per-query targets, both
+    strategies, and a traced and audited compact batch; (b) a 2 x N/2 mesh
+    at 0.99 (the data axis); (c) a ``DistributedExecutor`` session serving
+    ``n_requests`` seeded requests at k = 1 serially and with
+    ``pipeline=2``; (d) ``launch/serve.py --dist --backend gloo`` once
+    (``n_serve`` requests at k = 1).
+    Then, in this process, a world of one rank over ``nccl`` on the whole
+    index (on the card), and the holds: exact answers within rtol 2e-6 of
+    the single-card search's and no distance below exact − 1e-4; every
+    summed total within ``DIST_SLACK`` of an in-process oracle over the
+    same shards; compact and scan within the same limits; the trace's
+    accounting identity, the audit's padding slots empty; serial ==
+    pipelined.  Prints recall@1 at 0.99 beside the single-card path's and
+    each mesh's batch wall beside the single-card batch's.  The ranks'
+    launches (each rank's counters zeroed before its work, read after)
+    and the nccl run's are the phase's path.  Rank 0's largest call of
+    each kernel (``DIST_CALL_KEYS``) is filed in ``captured`` as
+    ``<kernel>@distribution`` for ``check_kernels``."""
+    import shutil
+    import torch
+    import torch.multiprocessing as tmp
+    from repro_torch.core import conformal
+    from repro_torch.serving import session as serving_session
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    d = os.path.join(scratch or os.path.join(ROOT, ".chip_scratch"),
+                     "distribution")
+    out_dir = out_dir or os.path.join(ROOT, "chiprun_out")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        ckpt = os.path.join(d, "ckpt")
+        serving_session.save_index(ckpt, lfi)
+        per_query = np.asarray(targets["per-query"])
+        np.save(os.path.join(d, "queries.npy"), queries)
+        np.save(os.path.join(d, "per_query.npy"), per_query)
+        job = {"dir": d, "ckpt": ckpt, "device": device,
+               "n_requests": n_requests, "batch": batch,
+               "timeout_s": DIST_TIMEOUT_S,
+               "serve_argv": ["--arch", "leafi", "--dist", "--backend",
+                              "gloo", "--device", device, "--ckpt", ckpt,
+                              "--k", "1", "--requests", str(n_serve),
+                              "--batch",
+                              str(batch), "--rate", "2000", "--targets",
+                              "0.9,0.95,0.99"]}
+        job_path = os.path.join(d, "job.json")
+        with open(job_path, "w") as fh:
+            json.dump(job, fh)
+        t_spawn = time.perf_counter()
+        tmp.start_processes(_dist_rank, args=(n_ranks, job_path),
+                            nprocs=n_ranks, join=True, start_method="spawn")
+        ranks_s = time.perf_counter() - t_spawn
+        ranks = []
+        for r in range(n_ranks):
+            with open(os.path.join(d, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        got = dict(np.load(os.path.join(d, "out.npz")))
+        with open(os.path.join(d, "served.json")) as fh:
+            served = json.load(fh)
+        dist_calls = _load_phase_calls(
+            os.path.join(d, "dist_calls.pt"),
+            {} if captured is None else captured, "distribution", device)
+        if on_card:
+            assert set(dist_calls) == set(DIST_CALL_KEYS), dist_calls
+        shutil.copy(os.path.join(d, "serve_main.log"), os.path.join(
+            out_dir, f"distribution_{label.strip() or 'index'}_serve.log"))
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        modes = {k: sum(r["modes"][k] for r in ranks)
+                 for k in ranks[0]["modes"]}
+        by_instance = {k: sum(r["by_instance"][k] for r in ranks)
+                       for k in ranks[0]["by_instance"]}
+        _check_launches(launches, by_instance, DIST_KERNELS,
+                        f"{label}distribution ({n_ranks} ranks)", on_card)
+        log(f"replay launches by instance on the {label}distribution path "
+            f"({n_ranks} ranks): " + json.dumps(modes))
+        if on_card:   # the baked and the per-query (bounded) forms
+            assert modes["seeded"] > 0 and modes["seeded+bound"] > 0, modes
+
+        # -- holds ---------------------------------------------------------
+        rows = _dist_rows(lfi, len(queries), per_query)
+        exact = {"default": results[("default", 1, "exact")][0].dists[:, 0],
+                 "direct": lfi.search(queries, k=1, quality_target=None,
+                                      dist_impl="direct",
+                                      device=device).dists[:, 0]}
+        gaps = {}
+        one = f"1x{n_ranks}"
+        for form, _, impl in DIST_FORMS:
+            key = f"{one}/{form}"
+            want = exact[impl or "default"]
+            if impl:
+                np.testing.assert_allclose(got[f"{key}/exact/nn"], want,
+                                           rtol=2e-6, err_msg=key)
+            else:
+                dev_ = float(np.abs(got[f"{key}/exact/nn"] - want).max())
+                assert dev_ <= _pass_limit(want), (key, dev_)
+                gaps[f"{key}/exact vs single card"] = dev_
+            for name in DIST_TARGETS:
+                assert (got[f"{key}/{name}/nn"] >= exact["direct"]
+                        - 1e-4).all(), (key, name)
+        two = f"2x{n_ranks // 2}"
+        meshes = [(one, n_ranks, DIST_TARGETS)]
+        if f"{two}/compact/0.99/nn" in got:
+            meshes.append((two, n_ranks // 2, ("0.99",)))
+        for mesh_key, n_shards, names in meshes:
+            shards = _local_shards(lfi, n_shards, device)
+            for name in names:
+                o_nn, o_tot = _dist_oracle(shards, queries, rows[name])
+                for form, _, impl in DIST_FORMS:
+                    key = f"{mesh_key}/{form}/{name}"
+                    gaps[key] = _dist_close(
+                        got[f"{key}/nn"], got[f"{key}/tot"], o_nn, o_tot,
+                        key, direct=impl is not None)
+                c, sc = f"{mesh_key}/compact-direct/{name}", \
+                    f"{mesh_key}/scan/{name}"
+                gaps[f"{c} vs scan"] = _dist_close(
+                    got[f"{c}/nn"], got[f"{c}/tot"], got[f"{sc}/nn"],
+                    got[f"{sc}/tot"], f"{c} vs scan")
+            del shards
+        # the traced and audited batch: bitwise the untraced one, the
+        # identities exact, the padding slots empty
+        un = f"1x{n_ranks}/compact/0.99"
+        assert np.array_equal(got["traced/nn"], got[f"{un}/nn"]) and \
+            np.array_equal(got["traced/tot"], got[f"{un}/tot"]), \
+            "the traced batch answers otherwise"
+        tr = {k.split("/")[-1]: v for k, v in got.items()
+              if k.startswith("traced/trace/")}
+        fa = {k.split("/")[-1]: v for k, v in got.items()
+              if k.startswith("traced/audit/")}
+        S, P = fa["kept"].shape
+        pruned = tr["pruned_box"] + tr["pruned_seed"] + tr["pruned_filter"]
+        assert (pruned == S * P - tr["survivors"]).all() and \
+            (tr["probed"] == S).all(), "the trace's identity"
+        overflow = {"queries": int((tr["overflow"] > 0).sum()),
+                    "query-shards": int(tr["overflow"].sum()),
+                    "survivors a query, mean": float(tr["survivors"].mean())}
+        assert ((fa["pruned_box"] + fa["pruned_seed"] + fa["pruned_filter"]
+                 + fa["kept"]) == len(queries)).all(), "the audit's identity"
+        pad = got["traced/leaf_size"] == 0
+        assert not fa["kept"][pad].any() and not fa["scored"][pad].any(), \
+            "an audited padding slot"
+        # serving: serial == pipelined
+        assert served["batches"][0] == served["batches"][1] and \
+            served["results"][0] == served["results"][1], \
+            "the executor's serial and pipelined serving differ"
+        assert len(served["results"][0]) == n_requests
+        assert served["main_dist"]["n_requests"] == n_serve == \
+            served["main"]["n_requests"]
+        walls = ranks[0]["walls"]
+        single = {name: results[("default", 1, name)][1]
+                  for name in DIST_TARGETS}
+        rec = {}
+        for key, ours in (("single card", results[("default", 1, "0.99")][0]
+                           .dists[:, 0]),
+                          (f"1 x {n_ranks} compact",
+                           got[f"1x{n_ranks}/compact/0.99/nn"])):
+            rec[key] = float((conformal.recall_at_1(
+                torch.as_tensor(ours), torch.as_tensor(exact["default"]))
+                > 0).float().mean())
+        log(f"{label}distribution: {n_ranks} ranks on {device} over gloo "
+            f"({ranks_s:.1f} s from spawn to join); the direct forms' "
+            "exact nn within rtol 2e-6 of the single-card direct search, "
+            "the default form's within twice the candidate pass's limit of "
+            "the default search; no distance below exact - 1e-4; nn and "
+            "summed totals against the in-process oracle over the same "
+            f"shards (slack {DIST_SLACK}; nn rtol 2e-6 for the direct "
+            "forms, the default's within twice the pass's limit), "
+            "compact-direct against scan: "
+            f"{json.dumps(gaps)}")
+        log(f"{label}distribution: recall@1 at 0.99 {json.dumps(rec)}; "
+            f"the traced 1 x {n_ranks} compact batch at 0.99 (capacity "
+            f"default_max_survivors of {P} slots a shard): overflow into "
+            f"the masked scan {json.dumps(overflow)}")
+        log(f"{label}distribution: batch walls of {len(queries)} queries "
+            "(s; several ranks share ONE card here, so this says nothing "
+            "of several cards): single card (k=1) " + ", ".join(
+                f"{n} {v:.3f}" for n, v in single.items()) + "; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+        log(f"{label}distribution: the executor served {n_requests} "
+            f"requests serially and with pipeline=2, the same batch log "
+            f"({len(served['batches'][0])} batches) and completions; "
+            "serve.main --dist over gloo: " + json.dumps(served["main_dist"],
+                                                       default=float))
+        nccl = seeded = None
+        if on_card:
+            nccl = _dist_nccl(lfi, queries, rows, exact, d)
+            for k, v in nccl["launches"].items():
+                launches[k] += v
+            for k, v in nccl["replay_modes"].items():
+                modes[k] += v
+            seeded = run_seeded_replay(
+                os.path.join(d, "seeded_call.pt"),
+                card_line().split(",")[-1].strip())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"{label}distribution phase {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "replay_modes": modes, "gaps": gaps,
+            "walls": walls, "recall": rec, "nccl": nccl, "seeded": seeded,
+            "overflow": overflow}
+
+
 def run_filter_suite(n_filters: int, *, sweep: dict | None = None,
                      main_shape: tuple = (256, 256, 256),
                      device: str = "cuda", captured: dict | None = None
@@ -4479,19 +5192,27 @@ def _fused_beside_raw(args, power: str) -> dict:
     return {k: res[k] for k in ("ms", "graph_ms", "max_abs_err")}
 
 
-def _serving_calls(name: str, captured: dict, power: str) -> dict:
-    """Kernel ``name`` at the serving phase's served batches
-    (``_merge_serving``), each call held against its plain version and
-    timed: its largest, the probe's (``leaf_topk``) and the warm-start
-    bound instance's (``replay``: held bitwise as called, timed from a
-    CUDA graph beside its bytes bound)."""
+#: the phases whose kernel calls ``check_kernels`` holds apart, and how
+#: their labels name them
+PHASE_CALLS = {"serving": "the served batches'",
+               "distribution": "the distribution phase's"}
+
+
+def _phase_calls(name: str, captured: dict, power: str,
+                 phase: str = "serving") -> dict:
+    """Kernel ``name`` at a phase's own calls (``_merge_serving``,
+    ``_load_phase_calls``), each call held against its plain version and
+    timed: its largest, the probe's (``leaf_topk``) and, for the serving
+    phase, the warm-start bound instance's (``replay``: held bitwise as
+    called, timed from a CUDA graph beside its bytes bound)."""
     out = {}
-    for key, what in ((f"{name}@serving", "largest"),
-                      (f"{name}@probe@serving", "probe")):
+    whose = PHASE_CALLS[phase]
+    for key, what in ((f"{name}@{phase}", "largest"),
+                      (f"{name}@probe@{phase}", "probe")):
         if key in captured:
             out[what] = _check_call(
-                name, captured[key][1],
-                f"{name} (the served batches' {what} call)", power)
+                name, captured[key][1], f"{name} ({whose} {what} call)",
+                power)
     if name == "replay" and "replay@bound@serving" in captured:
         from repro_torch.analysis import roofline
         from repro_torch.kernels.replay import kernel as replay_kernel
@@ -4521,9 +5242,9 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
     side of the stream design's limit, ``filter_mlp`` beside the fused
     float32 kernel at its own call, the replay also on calibration's
     largest call, the candidate pass also in ``direct`` form and on the
-    probe's largest call; the serving phase's kernels also at the served
-    batches' calls (``_serving_calls``); the redesigned kernels also at
-    ragged shapes (untimed)."""
+    probe's largest call; the serving and the distribution phases'
+    kernels also at those phases' own calls (``_phase_calls``); the
+    redesigned kernels also at ragged shapes (untimed)."""
     from repro_torch.kernels.filter_mlp import kernel as mlp_kernel
     from repro_torch.kernels.leaf_topk import ref as leaf_ref
     ragged = {**ragged_calls(), "replay": replay_calls(), **train_calls(),
@@ -4588,9 +5309,10 @@ def check_kernels(captured: dict, launches: dict, power: str) -> list:
                 "instances": _replay_instance_times(cal, label)}
         if name == "box_lb":
             row["by_shape"] = _box_shapes(captured, power)
-        serving_calls = _serving_calls(name, captured, power)
-        if serving_calls:
-            row["serving_calls"] = serving_calls
+        for phase in PHASE_CALLS:
+            calls = _phase_calls(name, captured, power, phase)
+            if calls:
+                row[f"{phase}_calls"] = calls
         if name == "early_walk":
             row.update(layout=res["layout"], counts=res["counts"],
                        path_calls="every call of both search_early phases "
@@ -4843,6 +5565,11 @@ def main() -> int:
     traced.append(phase("serving", run_serving, e2e["lfi"], e2e["queries"],
                         device="cuda", captured=captured, label="dstree "))
     paths.append(traced[-1]["launches"])
+    traced.append(phase("distribution", run_distribution, e2e["lfi"],
+                        e2e["queries"], e2e["targets"], e2e["results"],
+                        device="cuda", captured=captured, label="dstree "))
+    paths.append(traced[-1]["launches"])
+    seeded = traced[-1]["seeded"]
     n_filters = len(e2e["lfi"].leaf_ids)
     del e2e                               # the DSTree index leaves the card
     paths.append(phase("filter suite", run_filter_suite, n_filters,
@@ -4873,14 +5600,16 @@ def main() -> int:
     rows = phase("kernel checks", check_kernels, captured, launches, power)
     # the replay's launches by instance: the bound and traced ones launch
     # only in the trace-and-audit phases and (bound, under warm start) the
-    # serving phase, the plain one everywhere else
-    bound = sum(t["replay_modes"]["bound"] for t in traced)
-    n_traced = sum(t["replay_modes"]["traced"] for t in traced)
+    # serving phase, the seeded ones only in the distribution phase, the
+    # plain one everywhere else
+    by_mode = {m: sum(t["replay_modes"][m] for t in traced)
+               for m in traced[0]["replay_modes"] if m != "plain"}
     for row in rows:
         if row["name"] == "replay":
             row["launches_by_instance"] = {
-                "plain": launches["replay"] - bound - n_traced,
-                "bound": bound, "traced": n_traced}
+                "plain": launches["replay"] - sum(by_mode.values()),
+                **by_mode}
+            row["seeded"] = seeded
             log("replay launches by instance on all paths: "
                 + json.dumps(row["launches_by_instance"]))
     log(f"phase wall times (s): {json.dumps(phases)}; script "

@@ -3,8 +3,9 @@
 ``csrc/replay.cu`` gives each row a block of a walker warp and seven
 producer warps.  This script builds, with ``--other PATH``, any other
 replay source with the same C entry (another block layout, the parent's
-source; a source whose entry has no bound and no trace counters, as
-before they were added, is called without them) into ``build/kernels/``,
+source; a source whose entry has no seed and no validity mask, or also no
+bound and no trace counters, as before they were added, is called without
+them) into ``build/kernels/``,
 one nvcc each, beside the product.  It
 builds the DSTree and the iSAX index of ``chip_smoke.py`` (RandWalk 1M x
 256, numpy seed 0, 256 queries, seed 42) and captures, on each,
@@ -67,19 +68,24 @@ def _registers(log: str) -> List[str]:
 _OLD_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+#: the C entry's arguments before the seed and the validity mask
+_UNSEEDED_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
 
 
 def _signature(source: pathlib.Path) -> list:
-    """The argtypes of a source's ``replay`` entry: the product's, or the
-    one before the bound and the trace's counters."""
+    """The argtypes of a source's ``replay`` entry: the product's, the one
+    before the seed and the mask, or the one before the bound and the
+    trace's counters."""
     text = source.read_text()
     params = re.search(r'extern "C" int replay\(([^)]*)\)', text).group(1)
     n = len(params.split(","))
-    if n == len(_OLD_SIGNATURE):
-        return _OLD_SIGNATURE
-    if n != len(replay_kernel._SIGNATURES["replay"]):
-        raise ValueError(f"{source}: a replay entry of {n} arguments")
-    return replay_kernel._SIGNATURES["replay"]
+    for sig in (_OLD_SIGNATURE, _UNSEEDED_SIGNATURE,
+                replay_kernel._SIGNATURES["replay"]):
+        if n == len(sig):
+            return sig
+    raise ValueError(f"{source}: a replay entry of {n} arguments")
 
 
 def build_copies(others=()) -> tuple:
@@ -120,9 +126,12 @@ def _call(lib: ctypes.CDLL, args: tuple) -> tuple:
     topk_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
     counts = torch.empty((3, Q), dtype=torch.int32, device=dev)
     ptr = common.ptr
-    old = len(lib.replay.argtypes) == len(_OLD_SIGNATURE)
+    n = len(lib.replay.argtypes)
+    old = n == len(_OLD_SIGNATURE)
+    # the null bound (and seed and mask), and the null trace counters
+    nulls = () if old else (None,) * (n - len(_UNSEEDED_SIGNATURE) + 1)
     err = lib.replay(ptr(leaf_d), ptr(leaf_i), leaf_d.stride(0), ptr(d_lb),
-                     ptr(d_F), ptr(order), *(() if old else (None,)),
+                     ptr(d_F), ptr(order), *nulls,
                      ptr(topk_d), ptr(topk_i), ptr(counts[0]),
                      ptr(counts[1]), ptr(counts[2]),
                      *(() if old else (None, None)), Q, L, kk, k,

@@ -216,27 +216,36 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    d_lb: torch.Tensor, d_F: torch.Tensor,
                    order: torch.Tensor, k: int,
                    bsf_ub: Optional[torch.Tensor] = None,
-                   trace: bool = False):
+                   trace: bool = False,
+                   bsf0: Optional[torch.Tensor] = None,
+                   leaf_valid: Optional[torch.Tensor] = None):
     """Exact sequential-cascade replay over per-leaf top-k summaries.
 
     leaf_d/leaf_i: (Q, L, kk) each leaf's kk smallest distances and row ids;
     order: (Q, L) visit order; bsf_ub: optional (Q,) prune-only bound (the
-    lb test against min(bsf, ub)).  Returns (topk_d (Q, k), topk_i (Q, k),
-    n_searched, n_pruned_lb, n_pruned_filter) and, with ``trace``, the
-    replay stage's (n_box, n_seed) split of n_pruned_lb.  The one copy of
-    the cascade's decision logic: compact search runs it over gathered
-    candidate summaries, calibration (``conformal.simulate_search``) with
-    k=1 over the precollected d_L matrices.  CUDA tensors go to the replay
-    kernel in one launch (its plain, bound or traced instance); CPU
-    tensors to its plain version (``kernels/replay/ref.py``), which it
+    lb test against min(bsf, ub)); bsf0: optional (Q,) best-so-far seed,
+    one phantom candidate (id −1) in the running top-k's first place;
+    leaf_valid: optional (L,) bool, an invalid (shard-padding) leaf
+    lb-pruned unconditionally (box-pruned in the trace).  Returns (topk_d
+    (Q, k), topk_i (Q, k), n_searched, n_pruned_lb, n_pruned_filter) and,
+    with ``trace``, the replay stage's (n_box, n_seed) split of
+    n_pruned_lb.  The one copy of the cascade's decision logic: compact
+    search runs it over gathered candidate summaries, calibration
+    (``conformal.simulate_search``) with k=1 over the precollected d_L
+    matrices, :func:`compact_bsf_cascade` with k=1 from a collective seed.
+    CUDA tensors go to the replay kernel in one launch (its plain, bound
+    or traced instance, seeded where ``bsf0`` or ``leaf_valid`` is given);
+    CPU tensors to its plain version (``kernels/replay/ref.py``), which it
     equals bitwise.
     """
     if on_cpu(leaf_d, leaf_i, d_lb, d_F, order):
         return replay_ref.replay_cascade(leaf_d, leaf_i, d_lb, d_F, order, k,
-                                         bsf_ub=bsf_ub, trace=trace)
+                                         bsf_ub=bsf_ub, trace=trace,
+                                         bsf0=bsf0, leaf_valid=leaf_valid)
     return replay_kernel.replay_cascade_cuda(
         leaf_d, leaf_i, d_lb.contiguous(), d_F.contiguous(),
-        order.contiguous(), k, bsf_ub=bsf_ub, trace=trace)
+        order.contiguous(), k, bsf_ub=bsf_ub, trace=trace, bsf0=bsf0,
+        leaf_valid=leaf_valid)
 
 
 def _union_pass(series, leaf_start, leaf_size, queries, leaves, counts, kk,
@@ -476,6 +485,232 @@ def nn_distance_own_leaf(series: torch.Tensor, leaf_start: torch.Tensor,
             series, leaf_start, leaf_size, leaf_ids[c0:c0 + chunk], max_leaf)
         d = l2_ops.slab_l2(local_queries[c0:c0 + chunk], slabs, dist_impl)
         out[c0:c0 + chunk] = l2_ops.slab_masked_min(d, valid)[0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the leaf-sharded search's pieces (core/distributed.py runs them per shard)
+# ---------------------------------------------------------------------------
+
+
+def probe_best_leaf(series: torch.Tensor, leaf_start: torch.Tensor,
+                    leaf_size: torch.Tensor, lb: torch.Tensor,
+                    queries: torch.Tensor, max_leaf: int,
+                    dist_impl: Optional[str] = None) -> torch.Tensor:
+    """Min distance to each query's best-lb leaf → (Q,) bsf seed.
+
+    The distributed exchange's phase 1 on one shard.  Zero-size
+    (shard-padding) leaves have their lb forced to +inf before the argmin
+    (the first least wins), so the probe never lands on an empty leaf
+    while the shard has another; an all-padding shard probes +inf.  One
+    candidate pass at kk = 1 (:func:`_bucket_leaf_topk`: on the card the
+    candidate-pass kernel's warp instance).  ``dist_impl`` as
+    :func:`run_cascade`'s (``direct`` on the CPU, ``matmul`` on the
+    card)."""
+    Q = queries.shape[0]
+    dev = queries.device
+    dist_impl = dist_impl or l2_ops.default_gathered_impl(dev)
+    lb = torch.where(leaf_size[None, :] > 0, lb, _INF)
+    best = lb.argmin(dim=1)[:, None].contiguous()
+    vals = torch.full((Q, 1, 1), _INF, device=dev)
+    ids = torch.full((Q, 1, 1), -1, dtype=torch.int64, device=dev)
+    _bucket_leaf_topk(series, leaf_start, leaf_size, queries, best,
+                      torch.ones(Q, dtype=torch.int64, device=dev), 1,
+                      max_leaf, dist_impl, vals, ids, False)
+    return vals[:, 0, 0]
+
+
+def masked_bsf_scan(series: torch.Tensor, leaf_start: torch.Tensor,
+                    leaf_size: torch.Tensor, lb: torch.Tensor,
+                    d_F: torch.Tensor, queries: torch.Tensor, max_leaf: int,
+                    bsf0: torch.Tensor, bsf_ub=None, trace: bool = False,
+                    audit: bool = False):
+    """The 1-NN best-so-far cascade over every leaf from a seed bsf →
+    (bsf (Q,), n_s (Q,) int32).
+
+    The scan strategy's masked cascade in its distance-only form, a loop
+    over the L positions in ascending-lb order vectorised over the
+    queries, every position's rows scored (``direct``) and masked: the
+    distributed search's ``strategy="scan"``, the oracle and
+    :func:`compact_bsf_cascade`'s overflow route.  A zero-size leaf is
+    lb-pruned (box in the trace).  ``bsf_ub``: optional (Q,) prune-only
+    bound on the lb test; it never enters the bsf, which stays a witnessed
+    distance or the seed.  ``trace`` appends (n_box, n_seed, n_filter,
+    n_rows), each (Q,) int32; ``audit`` returns (bsf, n_s, that tuple,
+    AuditParts in leaf order) whatever ``trace`` says."""
+    Q, L = lb.shape
+    dev = queries.device
+    order = torch.argsort(lb, dim=1, stable=True)
+    lb_ord = torch.gather(lb, 1, order)
+    dF_ord = torch.gather(d_F, 1, order)
+    row_ids = torch.arange(max_leaf, device=dev)
+    bsf = bsf0.clone()
+    ub = None if bsf_ub is None else torch.as_tensor(
+        bsf_ub, dtype=torch.float32, device=dev)
+    zq = torch.zeros(Q, dtype=torch.int32, device=dev)
+    n_s, n_box, n_seed, n_pf, n_rows = zq, zq, zq, zq, zq
+    hist = ([torch.zeros((L, Q), dtype=torch.bool, device=dev)
+             for _ in range(4)] + [torch.full((L, Q), _INF, device=dev)]
+            if audit else None)
+    for p in range(L):
+        leaf = order[:, p]
+        size = leaf_size[leaf]
+        valid = size > 0
+        p_box = (lb_ord[:, p] > bsf) | ~valid
+        p_lb = (p_box if ub is None
+                else (lb_ord[:, p] > torch.minimum(bsf, ub)) | ~valid)
+        p_f = ~p_lb & (dF_ord[:, p] > bsf)
+        pruned = p_lb | p_f
+        rows = leaf_start[leaf][:, None] + row_ids               # (Q, R)
+        d = l2_ops.gathered_leaf_l2(queries, series[rows][:, None],
+                                    "direct")[:, 0]              # (Q, R)
+        d = torch.where((row_ids < size[:, None]) & ~pruned[:, None], d,
+                        _INF)
+        nn = d.amin(dim=1)
+        bsf = torch.minimum(bsf, nn)
+        n_s = n_s + (~pruned).to(torch.int32)
+        if trace or audit:
+            n_box = n_box + p_box.to(torch.int32)
+            n_seed = n_seed + (p_lb & ~p_box).to(torch.int32)
+            n_pf = n_pf + p_f.to(torch.int32)
+            n_rows = n_rows + torch.where(pruned, 0, size).to(torch.int32)
+        if audit:
+            for plane, v in zip(hist, (p_box, p_lb & ~p_box, p_f,
+                                       ~pruned, nn)):
+                plane[p] = v
+    if not (trace or audit):
+        return bsf, n_s
+    counters = (n_box, n_seed, n_pf, n_rows)
+    if not audit:
+        return bsf, n_s, counters
+
+    def leaf_order(h):                     # (L, Q) visit order → (Q, L)
+        return torch.empty_like(h.T).scatter_(1, order, h.T)
+    pb, ps, pf, kept, nn = (leaf_order(h) for h in hist)
+    return bsf, n_s, counters, AuditParts(pb, ps, pf, kept, kept, nn)
+
+
+def _put_rows(full: torch.Tensor, rows: torch.Tensor,
+              vals: torch.Tensor) -> torch.Tensor:
+    """A copy of ``full`` with ``vals`` in its ``rows``."""
+    out = full.clone()
+    out[rows] = vals
+    return out
+
+
+def compact_bsf_cascade(series: torch.Tensor, leaf_start: torch.Tensor,
+                        leaf_size: torch.Tensor, lb: torch.Tensor,
+                        d_F: torch.Tensor, queries: torch.Tensor,
+                        max_leaf: int, bsf0: torch.Tensor, *,
+                        max_survivors: Optional[int] = None,
+                        dist_impl: Optional[str] = None, bsf_ub=None,
+                        trace: bool = False, audit: bool = False):
+    """Fixed-capacity survivor compaction form of :func:`masked_bsf_scan`:
+    the same contract, (bsf (Q,), n_s (Q,)) from a seed ``bsf0``, with
+    distance compute only for the survivors.
+
+    1. The survivors: valid leaves with ``lb ≤ min(bsf0, ub)`` and ``d_F
+       ≤ bsf0`` (bsf only falls from ``bsf0``, so a superset of the leaves
+       the masked scan searches).
+    2. Each query's first ``max_survivors`` of them in ascending-lb order
+       (a stable sort of the flags over the lb order; padding slot P),
+       default :func:`default_max_survivors` of the P leaf slots.
+    3. One candidate pass at kk = 1 over them (:func:`_bucket_leaf_topk`:
+       the candidate-pass kernel's staged instance on the card), then the
+       exact cascade replayed over the per-leaf minima from the seed with
+       the padding lb-pruned (:func:`replay_cascade` with ``bsf0`` and
+       ``leaf_valid``: the replay kernel's seeded instance on the card).
+
+    A query with more survivors than the capacity (overflow) takes the
+    masked scan's answer instead; the scan runs over the overflow queries
+    alone.
+    The capacity is kept although eager PyTorch has no static shapes: it
+    decides the trace's ``overflow`` and ``distances`` and the audit's
+    planes, as in the reference.  Under ``dist_impl="direct"`` the result
+    equals :func:`masked_bsf_scan`'s bitwise.  ``trace`` appends a
+    per-query :class:`CascadeTrace` (mask-stage attribution with padding
+    box-pruned, ``survivors``, ``overflow``, the survivors' rows;
+    overflow queries the scan's step counters); ``audit`` appends the
+    :class:`AuditParts` (mask-stage planes, ``kept`` the survivors,
+    ``leaf_nn`` the pass's minima; overflow queries the scan's planes).
+    The return is (bsf, n_s[, trace][, parts])."""
+    Q, _ = queries.shape
+    P = leaf_start.shape[0]
+    dev = queries.device
+    if max_survivors is None:
+        max_survivors = default_max_survivors(P)
+    C = max(min(int(max_survivors), P), 1)
+    dist_impl = dist_impl or l2_ops.default_gathered_impl(dev)
+    ub = (torch.full((Q,), _INF, device=dev) if bsf_ub is None
+          else torch.as_tensor(bsf_ub, dtype=torch.float32,
+                               device=dev).contiguous())
+    valid = leaf_size > 0
+    lb = torch.where(valid[None, :], lb, _INF)
+    bsf0m = torch.minimum(bsf0, ub)
+    survive = ((lb <= bsf0m[:, None]) & (d_F <= bsf0[:, None])
+               & valid[None, :])
+    n_surv = survive.sum(dim=1, dtype=torch.int32)
+
+    order = torch.argsort(lb, dim=1, stable=True)                # (Q, P)
+    leaves, _ = survivor_lists(survive, order)
+    leaves = leaves[:, :C].contiguous()
+    counts = torch.clamp_max(n_surv, C).to(torch.int64)
+    # row P of the summaries is a scratch row for the padding slots
+    leaf_d = torch.full((Q, P + 1, 1), _INF, device=dev)
+    leaf_i = torch.full((Q, P + 1, 1), -1, dtype=torch.int64, device=dev)
+    _bucket_leaf_topk(series, leaf_start, leaf_size, queries, leaves,
+                      counts, 1, max_leaf, dist_impl, leaf_d, leaf_i, True)
+    leaf_d, leaf_i = leaf_d[:, :P], leaf_i[:, :P]
+    td, _, ns_c, _, _ = replay_cascade(
+        leaf_d, leaf_i, lb, d_F, order, 1,
+        bsf_ub=None if bsf_ub is None else ub, bsf0=bsf0.contiguous(),
+        leaf_valid=valid)
+    bsf, n_s = td[:, 0], ns_c
+
+    # the overflow queries alone take the masked scan, their rows put back
+    over = torch.nonzero(n_surv > C)[:, 0]
+    scan = None
+    if over.numel():
+        scan = masked_bsf_scan(series, leaf_start, leaf_size, lb[over],
+                               d_F[over], queries[over], max_leaf,
+                               bsf0[over], ub[over], trace=trace, audit=audit)
+        bsf, n_s = _put_rows(bsf, over, scan[0]), _put_rows(n_s, over, scan[1])
+    if not (trace or audit):
+        return bsf, n_s
+
+    # the mask-stage attribution of the non-survivors (an exact partition:
+    # padding, whose lb is +inf, lands in box)
+    not_s = ~survive
+    p_box = not_s & ((lb > bsf0[:, None]) | ~valid[None, :])
+    p_seed = not_s & ~p_box & (lb > bsf0m[:, None])
+    p_filt = not_s & ~p_box & ~p_seed
+    out = (bsf, n_s)
+    zq = torch.zeros(Q, dtype=torch.int32, device=dev)
+    if trace:
+        sizes = leaf_size.to(torch.int32)
+        tr = CascadeTrace(
+            pruned_box=p_box.sum(dim=1, dtype=torch.int32),
+            pruned_seed=p_seed.sum(dim=1, dtype=torch.int32),
+            pruned_filter=p_filt.sum(dim=1, dtype=torch.int32),
+            probed=zq, survivors=n_surv, overflow=zq,
+            distances=torch.where(survive, sizes[None, :], 0).sum(
+                dim=1, dtype=torch.int32))
+        if scan is not None:
+            s_box, s_seed, s_pf, s_rows = scan[2]
+            one = torch.ones_like(s_box)
+            tr = CascadeTrace(*(_put_rows(t, over, v) for t, v in zip(
+                tr, (s_box, s_seed, s_pf, zq[over], scan[1], one, s_rows))))
+        out += (tr,)
+    if audit:
+        # leaf_d holds each survivor's exact nearest distance, +inf for a
+        # leaf never scored: the audit's leaf_nn
+        leaf_nn = leaf_d[:, :, 0]
+        parts = AuditParts(p_box, p_seed, p_filt, survive,
+                           torch.isfinite(leaf_nn), leaf_nn)
+        if scan is not None:
+            parts = AuditParts(*(_put_rows(t, over, v)
+                                 for t, v in zip(parts, scan[3])))
+        out += (parts,)
     return out
 
 

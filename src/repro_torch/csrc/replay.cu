@@ -95,6 +95,18 @@
 //     trace: the batches' and calibration's, the code of the design above,
 //     its walker unchanged: walk), BOUND (a bound) and TRACED (the
 //     counters, and a bound or +inf), whose walker is walk_bound.
+//   * The seed bsf0 (Q,) and the validity mask leaf_valid (L,), where
+//     either is given (engine.py:398 in the reference; the leaf-sharded
+//     search's compaction replays each shard from the collective bsf): a
+//     SEED instance of each MODE, so that with both pointers null the three
+//     instances above are the code they were.  The seed enters the top-k
+//     as one phantom candidate of id -1 before the walk (insert: the
+//     plain loop's topk_d[:, 0] = bsf0), and, for k = 1, is the bsf the
+//     ring starts with, so the producers' first pre-test reads it.  A
+//     producer drops an invalid leaf (shard padding) before the ring,
+//     counted lb-pruned and, TRACED, box (ring.dropped), with its
+//     prediction and values never read; the walkers are unchanged.  A NaN
+//     seed is not taken (the caller's seeds are distances or +inf).
 //   * A wait past ~10 s of clock traps (a launch failure, not a hung card).
 //   ref.py's replay_chunked emulates this walk for the CPU tests, with a
 //   pre-test bsf that lags by a given number of chunks and a ring of a
@@ -399,12 +411,14 @@ __device__ __forceinline__ int4 walk_bound(Ring<NS>& ring, TopK<REG>& top,
 }
 
 // producer `first` of `producers`: steps first, first + producers, ...
-template <int NS, int MODE>
+// (SEED: valid, where not null, marks the leaves to walk)
+template <int NS, int MODE, bool SEED>
 __device__ __forceinline__ void produce(
     Ring<NS>& ring, const long long* __restrict__ ord,
     const float* __restrict__ lbr, const float* __restrict__ fr,
     const float* __restrict__ ldr, const long long* __restrict__ lir,
-    float ub, int L, int kk, int first, int n_steps, int lane) {
+    const unsigned char* __restrict__ valid, float ub, int L, int kk,
+    int first, int n_steps, int lane) {
   constexpr int C = SUB<NS>, S = NS > 0 ? NS : 1;
   long long next[C];
   auto fetch = [&](int s) {
@@ -418,7 +432,7 @@ __device__ __forceinline__ void produce(
   int dropped = 0;
   for (int s = first; s < n_steps; s += PRODUCERS) {
     long long o[C];
-    bool ok[C];
+    bool ok[C], inv[C];
     float lb[C], f[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -427,7 +441,11 @@ __device__ __forceinline__ void produce(
     }
     if (s + PRODUCERS < n_steps) fetch(s + PRODUCERS);
 #pragma unroll
-    for (int c = 0; c < C; ++c) lb[c] = ok[c] ? __ldg(lbr + o[c]) : 0.f;
+    for (int c = 0; c < C; ++c) {
+      // an invalid leaf (SEED only) is lb-pruned for certain
+      inv[c] = SEED && valid != nullptr && ok[c] && !__ldg(valid + o[c]);
+      lb[c] = ok[c] && !inv[c] ? __ldg(lbr + o[c]) : 0.f;
+    }
     // the pre-test, against the walker's newest bsf: a bound above it (or
     // above the bound ub) is lb-pruned for certain, and its prediction is
     // never read
@@ -437,7 +455,7 @@ __device__ __forceinline__ void produce(
     bool any = false;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      need[c] = ok[c] && !(lb[c] > thr_a);
+      need[c] = ok[c] && !inv[c] && !(lb[c] > thr_a);
       any |= need[c];
       f[c] = 0.f;
     }
@@ -493,7 +511,7 @@ __device__ __forceinline__ void produce(
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const bool drop =
-          lb[c] > thr_c && (MODE != TRACED || lb[c] > bsf_c);
+          inv[c] || (lb[c] > thr_c && (MODE != TRACED || lb[c] > bsf_c));
       kept[c] = __ballot_sync(FULL, ok[c] && !drop);
       dropped += __popc(__ballot_sync(FULL, ok[c])) - __popc(kept[c]);
       n += __popc(kept[c]);
@@ -541,13 +559,15 @@ __device__ __forceinline__ void produce(
   if (lane == 0 && dropped) atomicAdd(&ring.dropped, dropped);
 }
 
-template <bool REG, int NS, int MODE>
+template <bool REG, int NS, int MODE, bool SEED>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 replay_kernel(const float* __restrict__ leaf_d,
               const long long* __restrict__ leaf_i, long long row_stride,
               const float* __restrict__ d_lb, const float* __restrict__ d_F,
               const long long* __restrict__ order,
-              const float* __restrict__ bsf_ub, float* topk_d,
+              const float* __restrict__ bsf_ub,
+              const float* __restrict__ bsf0,
+              const unsigned char* __restrict__ leaf_valid, float* topk_d,
               long long* topk_i, int* __restrict__ n_s,
               int* __restrict__ n_plb, int* __restrict__ n_pf,
               int* __restrict__ n_box, int* __restrict__ n_seed, int Q,
@@ -555,13 +575,21 @@ replay_kernel(const float* __restrict__ leaf_d,
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Ring<NS>& ring = *reinterpret_cast<Ring<NS>*>(smem);
+  const int r = blockIdx.x;
+  // the row's seed: +inf without one (a NaN seed is not taken)
+  float seed = INFINITY;
+  if constexpr (SEED) {
+    if (bsf0 != nullptr) {
+      const float b = __ldg(bsf0 + r);
+      if (b < INFINITY) seed = b;
+    }
+  }
   if (warp == 0 && lane == 0) {                     // warp 0: the walker
     ring.posted = 0;
     ring.head = ring.dropped = 0;
-    ring.bsf = INFINITY;
+    ring.bsf = k == 1 ? seed : INFINITY;            // the top-k's k-th
   }
   __syncthreads();
-  const int r = blockIdx.x;
   const int n_steps = (L + STEP<NS> - 1) / STEP<NS>;
   const long long* ord = order + (long long)r * L;
   const float* ldr = leaf_d + r * row_stride;
@@ -571,13 +599,16 @@ replay_kernel(const float* __restrict__ leaf_d,
       MODE != PLAIN && bsf_ub != nullptr ? __ldg(bsf_ub + r) : INFINITY;
   int4 pruned = make_int4(0, 0, 0, 0);
   if (warp > 0) {
-    produce<NS, MODE>(ring, ord, d_lb + (long long)r * L,
-                      d_F + (long long)r * L, ldr, lir, ub, L, kk, warp - 1,
-                      n_steps, lane);
+    produce<NS, MODE, SEED>(ring, ord, d_lb + (long long)r * L,
+                            d_F + (long long)r * L, ldr, lir, leaf_valid, ub,
+                            L, kk, warp - 1, n_steps, lane);
   } else {
     float* td = topk_d + (long long)r * k;
     long long* ti = topk_i + (long long)r * k;
     TopK<REG> top(td, ti, k, lane);
+    if constexpr (SEED) {
+      if (seed < INFINITY) top.insert(seed, -1);    // the phantom candidate
+    }
     if constexpr (MODE == PLAIN) {
       const int2 p = walk<REG, NS>(ring, top, ldr, lir, kk, n_steps, lane);
       pruned = make_int4(p.x, p.y, 0, 0);
@@ -608,17 +639,19 @@ struct Args {
   const float* f;
   const long long* o;
   const float* ub;                       // null: no bound
+  const float* seed;                     // null: no seed
+  const unsigned char* valid;            // null: every leaf valid
   float* td;
   long long* ti;
   int *s, *plb, *pf;
-  int *box, *seed;                       // null: no trace
+  int *box, *seed_n;                     // null: no trace
   int Q, L, kk, k;
 };
 
-template <bool REG, int NS, int MODE>
+template <bool REG, int NS, int MODE, bool SEED>
 cudaError_t launch_mode(const Args& a, cudaStream_t st) {
   const size_t smem = sizeof(Ring<NS>);
-  auto* kern = replay_kernel<REG, NS, MODE>;
+  auto* kern = replay_kernel<REG, NS, MODE, SEED>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -626,24 +659,30 @@ cudaError_t launch_mode(const Args& a, cudaStream_t st) {
     if (err != cudaSuccess) return err;
   }
   kern<<<a.Q, THREADS, smem, st>>>(a.ld, a.li, a.row_stride, a.lb, a.f,
-                                      a.o, a.ub, a.td, a.ti, a.s, a.plb,
-                                      a.pf, a.box, a.seed, a.Q, a.L, a.kk,
-                                      a.k);
+                                      a.o, a.ub, a.seed, a.valid, a.td,
+                                      a.ti, a.s, a.plb, a.pf, a.box,
+                                      a.seed_n, a.Q, a.L, a.kk, a.k);
   return cudaGetLastError();
 }
 
-template <bool REG, int NS>
+template <bool REG, int NS, bool SEED>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  if (a.box) return launch_mode<REG, NS, TRACED>(a, st);
-  if (a.ub) return launch_mode<REG, NS, BOUND>(a, st);
-  return launch_mode<REG, NS, PLAIN>(a, st);
+  if (a.box) return launch_mode<REG, NS, TRACED, SEED>(a, st);
+  if (a.ub) return launch_mode<REG, NS, BOUND, SEED>(a, st);
+  return launch_mode<REG, NS, PLAIN, SEED>(a, st);
+}
+
+template <bool REG, bool SEED>
+cudaError_t launch_kk(const Args& a, cudaStream_t st) {
+  if (a.kk <= 1) return launch<REG, 1, SEED>(a, st);
+  if (a.kk <= PRE) return launch<REG, PRE, SEED>(a, st);
+  return launch<REG, 0, SEED>(a, st);
 }
 
 template <bool REG>
-cudaError_t launch_kk(const Args& a, cudaStream_t st) {
-  if (a.kk <= 1) return launch<REG, 1>(a, st);
-  if (a.kk <= PRE) return launch<REG, PRE>(a, st);
-  return launch<REG, 0>(a, st);
+cudaError_t launch_seed(const Args& a, cudaStream_t st) {
+  if (a.seed || a.valid) return launch_kk<REG, true>(a, st);
+  return launch_kk<REG, false>(a, st);
 }
 
 }  // namespace
@@ -651,12 +690,14 @@ cudaError_t launch_kk(const Args& a, cudaStream_t st) {
 // leaf_d (Q, L, kk) float32 and leaf_i (Q, L, kk) int64, rows row_stride
 // elements apart, each row's (L, kk) block contiguous; d_lb, d_F (Q, L)
 // float32 and order (Q, L) int64, contiguous, order's entries in [0, L);
-// bsf_ub (Q,) float32 or null -> topk_d (Q, k) float32, topk_i (Q, k)
-// int64, n_s, n_plb, n_pf (Q,) int32, and n_box, n_seed (Q,) int32 where
-// both are given (both null: no trace).
+// bsf_ub (Q,) float32 or null; bsf0 (Q,) float32 or null; leaf_valid (L,)
+// uint8 (bool) or null -> topk_d (Q, k) float32, topk_i (Q, k) int64,
+// n_s, n_plb, n_pf (Q,) int32, and n_box, n_seed (Q,) int32 where both
+// are given (both null: no trace).
 extern "C" int replay(const void* leaf_d, const void* leaf_i,
                       long long row_stride, const void* d_lb,
                       const void* d_F, const void* order, const void* bsf_ub,
+                      const void* bsf0, const void* leaf_valid,
                       void* topk_d, void* topk_i, void* n_s, void* n_plb,
                       void* n_pf, void* n_box, void* n_seed, int Q, int L,
                       int kk, int k, void* stream) {
@@ -670,6 +711,8 @@ extern "C" int replay(const void* leaf_d, const void* leaf_i,
                static_cast<const float*>(d_F),
                static_cast<const long long*>(order),
                static_cast<const float*>(bsf_ub),
+               static_cast<const float*>(bsf0),
+               static_cast<const unsigned char*>(leaf_valid),
                static_cast<float*>(topk_d),
                static_cast<long long*>(topk_i),
                static_cast<int*>(n_s),
@@ -682,5 +725,6 @@ extern "C" int replay(const void* leaf_d, const void* leaf_i,
                kk,
                k};
   const auto st = static_cast<cudaStream_t>(stream);
-  return k <= REG_MAX_K ? launch_kk<true>(a, st) : launch_kk<false>(a, st);
+  return k <= REG_MAX_K ? launch_seed<true>(a, st)
+                        : launch_seed<false>(a, st);
 }

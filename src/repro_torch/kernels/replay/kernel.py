@@ -18,7 +18,10 @@ k and kk (:func:`instance`), and by the bound and the trace counters it is
 given (:func:`mode`): the plain instance without either (every batch and
 calibration), the bound instance with the prune-only bound ``bsf_ub``
 (the lb test against min(bsf, ub)), the traced one with the box/seed
-counters.  The wrapper checks its inputs, allocates the outputs with
+counters; and each of them seeded where a seed ``bsf0`` or a validity
+mask ``leaf_valid`` is given (the leaf-sharded search's compaction: the
+seed starts the top-k and the ring's bsf, the producers drop invalid
+leaves before the ring).  The wrapper checks its inputs, allocates the outputs with
 ``torch.empty``, launches on the current stream without synchronising,
 raises if the launch reports a CUDA error, and adds one to
 :data:`LAUNCHES`.  Every k is served by the one launch.
@@ -36,14 +39,15 @@ from . import ref
 #: launches per kernel; ``chip_smoke.py`` zeroes them before the main path
 LAUNCHES = {"replay": 0}
 #: the same launches by instance (:func:`mode`)
-MODE_LAUNCHES = {"plain": 0, "bound": 0, "traced": 0}
+MODE_LAUNCHES = {"plain": 0, "bound": 0, "traced": 0, "seeded": 0,
+                 "seeded+bound": 0, "seeded+traced": 0}
 
 #: the largest k whose top-k lives in registers (``REG_MAX_K``)
 REG_MAX_K = 32
 
 _SIGNATURES = {
     "replay": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -73,22 +77,30 @@ def instance(kk: int, k: int) -> str:
     return f"top-k in {top}; leaf slots a ring entry: {slots}"
 
 
-def mode(bsf_ub: Optional[torch.Tensor], trace: bool) -> str:
+def mode(bsf_ub: Optional[torch.Tensor], trace: bool,
+         seeded: bool = False) -> str:
     """The kernel's instance for a call's bound and trace (``MODE`` in the
     source): "traced" with the counters (a bound or +inf), "bound" with a
-    bound only, "plain" with neither."""
-    return "traced" if trace else "plain" if bsf_ub is None else "bound"
+    bound only, "plain" with neither; "seeded" (alone, or before "+" and
+    the bound or traced one) with a seed or a validity mask (``SEED``)."""
+    name = "traced" if trace else "plain" if bsf_ub is None else "bound"
+    if not seeded:
+        return name
+    return "seeded" if name == "plain" else f"seeded+{name}"
 
 
 def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                         d_lb: torch.Tensor, d_F: torch.Tensor,
                         order: torch.Tensor, k: int,
                         bsf_ub: Optional[torch.Tensor] = None,
-                        trace: bool = False):
+                        trace: bool = False,
+                        bsf0: Optional[torch.Tensor] = None,
+                        leaf_valid: Optional[torch.Tensor] = None):
     """The cascade replay on one card: leaf_d (Q, L, kk) float32, leaf_i
     (Q, L, kk) int64 with leaf_d's strides, d_lb and d_F (Q, L) float32,
-    order (Q, L) int64 with entries in [0, L), bsf_ub None or (Q,) float32
-    → (topk_d (Q, k), topk_i (Q, k), n_searched, n_pruned_lb,
+    order (Q, L) int64 with entries in [0, L), bsf_ub and bsf0 None or
+    (Q,) float32 (bsf0 never NaN), leaf_valid None or (L,) bool →
+    (topk_d (Q, k), topk_i (Q, k), n_searched, n_pruned_lb,
     n_pruned_filter (Q,) int32) and, with ``trace``, (n_box, n_seed) (Q,)
     int32: ``ref.replay_cascade``'s outputs."""
     dev = leaf_d.device
@@ -105,11 +117,15 @@ def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
         if tuple(t.shape) != (Q, L):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(Q, L)}")
-    if bsf_ub is not None:
-        common.require(bsf_ub, "bsf_ub", torch.float32, 1, dev)
-        if bsf_ub.shape[0] != Q:
-            raise ValueError(f"bsf_ub has shape {tuple(bsf_ub.shape)}, "
-                             f"expected {(Q,)}")
+    for name, t, dtype, n in (("bsf_ub", bsf_ub, torch.float32, Q),
+                              ("bsf0", bsf0, torch.float32, Q),
+                              ("leaf_valid", leaf_valid, torch.bool, L)):
+        if t is None:
+            continue
+        common.require(t, name, dtype, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {(n,)}")
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     topk_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
@@ -120,7 +136,8 @@ def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     err = lib.replay(common.ptr(leaf_d), common.ptr(leaf_i),
                      leaf_d.stride(0), common.ptr(d_lb), common.ptr(d_F),
                      common.ptr(order),
-                     None if bsf_ub is None else common.ptr(bsf_ub),
+                     *(None if t is None else common.ptr(t)
+                       for t in (bsf_ub, bsf0, leaf_valid)),
                      common.ptr(topk_d), common.ptr(topk_i),
                      *(common.ptr(c) for c in counts[:3]),
                      *((common.ptr(counts[3]), common.ptr(counts[4]))
@@ -128,5 +145,6 @@ def replay_cascade_cuda(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                      Q, L, kk, k, common.stream_ptr(leaf_d))
     common.check(err, "replay")
     LAUNCHES["replay"] += 1
-    MODE_LAUNCHES[mode(bsf_ub, trace)] += 1
+    MODE_LAUNCHES[mode(bsf_ub, trace, bsf0 is not None
+                       or leaf_valid is not None)] += 1
     return (topk_d, topk_i) + tuple(counts)

@@ -4,9 +4,10 @@
 engine runs it for CPU tensors and ``chip_smoke.py`` holds the kernel
 against it, bitwise, on the card.  It is the sequential cascade as a Python
 loop over the L visit positions, vectorised over the rows (the reference's
-``lax.scan`` inside a ``vmap``).  Its prune-only bound ``bsf_ub`` and its
-``trace`` counters (the box/seed split of the lb-pruned count) are the
-reference's (``src/repro/core/engine.py:307-395``).
+``lax.scan`` inside a ``vmap``).  Its prune-only bound ``bsf_ub``, its
+``trace`` counters (the box/seed split of the lb-pruned count), its seed
+``bsf0`` and its validity mask ``leaf_valid`` are the reference's
+(``src/repro/core/engine.py:307-420``).
 
 ``replay_chunked`` is the same function walked as the kernel walks it:
 producers pre-test each chunk of positions against a bsf that lags the
@@ -59,24 +60,40 @@ def counted(topk_d, topk_i, plb_hist, pf_hist):
     return topk_d, topk_i, n_s, n_plb, n_pf
 
 
+def seeded_topk(Q: int, k: int, device,
+                bsf0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The running top-k a replay starts from: empty (+inf, −1), or with
+    the seed ``bsf0`` (Q,) as one phantom candidate of id −1 in its first
+    place (the reference's ``init``)."""
+    topk_d, topk_i = init_topk(Q, k, device)
+    if bsf0 is not None:
+        topk_d[:, 0] = bsf0
+    return topk_d, topk_i
+
+
 def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    d_lb: torch.Tensor, d_F: torch.Tensor,
                    order: torch.Tensor, k: int,
                    bsf_ub: Optional[torch.Tensor] = None,
-                   trace: bool = False):
+                   trace: bool = False,
+                   bsf0: Optional[torch.Tensor] = None,
+                   leaf_valid: Optional[torch.Tensor] = None):
     """Exact sequential-cascade replay over per-leaf top-k summaries.
 
     leaf_d/leaf_i: (Q, L, kk) each leaf's kk distances and row ids; d_lb,
     d_F: (Q, L); order: (Q, L) visit order; bsf_ub: optional (Q,) float32
-    prune-only bound on each row's k-th distance.  At each position, with
-    bsf the running k-th distance: lb-pruned if d_lb > min(bsf, ub) (the
-    minimum NaN if either is, as ``jnp.minimum``; without a bound d_lb >
-    bsf), else filter-pruned if d_F > bsf, else the leaf's values merge
-    into the running top-k.  The bound never enters the filter test or the
-    merge.  Returns (topk_d (Q, k), topk_i (Q, k), n_searched,
-    n_pruned_lb, n_pruned_filter) and, with ``trace``, the lb-pruned
-    count's split (n_box: d_lb > bsf; n_seed: lb-pruned but not box), all
-    counters int32 (Q,)."""
+    prune-only bound on each row's k-th distance; bsf0: optional (Q,)
+    float32 seed, never NaN (:func:`seeded_topk`); leaf_valid: optional
+    (L,) bool, False for a leaf that is shard padding.  At each position,
+    with bsf the running k-th distance: lb-pruned if the leaf is invalid
+    or d_lb > min(bsf, ub) (the minimum NaN if either is, as
+    ``jnp.minimum``; without a bound d_lb > bsf), else filter-pruned if
+    d_F > bsf, else the leaf's values merge into the running top-k.  The
+    bound never enters the filter test or the merge.  Returns (topk_d (Q,
+    k), topk_i (Q, k), n_searched, n_pruned_lb, n_pruned_filter) and, with
+    ``trace``, the lb-pruned count's split (n_box: invalid or d_lb > bsf;
+    n_seed: lb-pruned but not box), all counters int32 (Q,)."""
     Q, L, kk = leaf_d.shape
     dev = leaf_d.device
     lb_ord = torch.gather(d_lb, 1, order)
@@ -84,7 +101,9 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     idx = order[:, :, None].expand(Q, L, kk)
     ld_ord = torch.gather(leaf_d, 1, idx)
     li_ord = torch.gather(leaf_i, 1, idx)
-    topk_d, topk_i = init_topk(Q, k, dev)
+    inv_ord = (None if leaf_valid is None
+               else ~leaf_valid.to(torch.bool)[order])           # (Q, L)
+    topk_d, topk_i = seeded_topk(Q, k, dev, bsf0)
     plb_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     pf_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
     box_hist = torch.zeros((L, Q), dtype=torch.bool, device=dev)
@@ -93,6 +112,9 @@ def replay_cascade(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
         p_box = lb_ord[:, p] > bsf
         p_lb = (p_box if bsf_ub is None
                 else lb_ord[:, p] > torch.minimum(bsf, bsf_ub))
+        if inv_ord is not None:
+            p_box = p_box | inv_ord[:, p]
+            p_lb = p_lb | inv_ord[:, p]
         p_f = ~p_lb & (dF_ord[:, p] > bsf)
         vals = torch.where((p_lb | p_f)[:, None], _INF, ld_ord[:, p])
         topk_d, topk_i = merge_topk(topk_d, topk_i, vals, li_ord[:, p], k)
@@ -118,21 +140,26 @@ def _leaf_min(vals: torch.Tensor) -> torch.Tensor:
 
 def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
                   d_F: torch.Tensor, order: torch.Tensor, k: int,
-                  bsf_ub: Optional[torch.Tensor] = None):
+                  bsf_ub: Optional[torch.Tensor] = None,
+                  bsf0: Optional[torch.Tensor] = None,
+                  leaf_valid: Optional[torch.Tensor] = None):
     """Per row, (the ring entries no bsf can drop, the leaves whose values
-    enter the top-k, the searched leaves), each int32 (Q,): the positions
-    not lb-pruned by the bsf just before them and the bound ``bsf_ub``
-    (n_s + n_pf), the searched positions with a value below it, and n_s.
-    The kernel's ring takes at least the first (stale pre-tests keep more;
-    the traced instance also the positions only the bound prunes), and its
-    walker merges at least the second one by one: the serial chain that
-    sets the time of a row."""
+    enter the top-k, the searched leaves), each int32 (Q,): the valid
+    positions not lb-pruned by the bsf just before them (the seed ``bsf0``
+    counted) and the bound ``bsf_ub`` (n_s + n_pf), the searched positions
+    with a value below it, and n_s.  The kernel's ring takes at least the
+    first (stale pre-tests keep more; the traced instance also the
+    positions only the bound prunes; an invalid leaf never enters), and
+    its walker merges at least the second one by one: the serial chain
+    that sets the time of a row."""
     Q, L, kk = leaf_d.shape
     lb_ord = torch.gather(d_lb, 1, order)
     dF_ord = torch.gather(d_F, 1, order)
     ld_ord = torch.gather(leaf_d, 1, order[:, :, None].expand(Q, L, kk))
     vmin = _leaf_min(ld_ord)
-    topk_d, _ = init_topk(Q, k, leaf_d.device)
+    inv_ord = (None if leaf_valid is None
+               else ~leaf_valid.to(torch.bool)[order])
+    topk_d, _ = seeded_topk(Q, k, leaf_d.device, bsf0)
     entries = torch.zeros(Q, dtype=torch.int32, device=leaf_d.device)
     entering = torch.zeros_like(entries)
     searched_n = torch.zeros_like(entries)
@@ -140,6 +167,8 @@ def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
         bsf = topk_d[:, -1]
         p_lb = lb_ord[:, p] > (bsf if bsf_ub is None
                                else torch.minimum(bsf, bsf_ub))
+        if inv_ord is not None:
+            p_lb = p_lb | inv_ord[:, p]
         searched = ~p_lb & ~(dF_ord[:, p] > bsf)
         entries += ~p_lb
         searched_n += searched
@@ -153,19 +182,25 @@ def chain_lengths(leaf_d: torch.Tensor, d_lb: torch.Tensor,
 def bound_bytes(leaf_d: torch.Tensor, d_lb: torch.Tensor,
                 d_F: torch.Tensor, order: torch.Tensor, k: int,
                 bsf_ub: Optional[torch.Tensor] = None,
-                trace: bool = False) -> int:
+                trace: bool = False,
+                bsf0: Optional[torch.Tensor] = None,
+                leaf_valid: Optional[torch.Tensor] = None) -> int:
     """The least bytes a replay call must move on its data: every
     position's order entry and bound (8 + 4), the prediction of each
-    position its bound (and ``bsf_ub``) does not prune (4), each searched
-    leaf's kk values (4 each) and each entering leaf's kk ids (8 each), a
-    row's ``bsf_ub`` where given (4), and the outputs (the top-k's values
-    and ids, three counters a row, five with ``trace``)."""
+    position its bound (and ``bsf_ub``, the seed, the validity) does not
+    prune (4), each searched leaf's kk values (4 each) and each entering
+    leaf's kk ids (8 each), a row's ``bsf_ub`` and ``bsf0`` where given (4
+    each), the (L,) validity mask where given (1 a leaf), and the outputs
+    (the top-k's values and ids, three counters a row, five with
+    ``trace``)."""
     Q, L, kk = leaf_d.shape
     entries, entering, searched = chain_lengths(leaf_d, d_lb, d_F, order, k,
-                                                bsf_ub)
+                                                bsf_ub, bsf0, leaf_valid)
     return (12 * Q * L + 4 * int(entries.sum()) + 4 * kk * int(searched.sum())
             + 8 * kk * int(entering.sum()) + Q * (12 * k + 12)
-            + (0 if bsf_ub is None else 4 * Q) + (8 * Q if trace else 0))
+            + (0 if bsf_ub is None else 4 * Q)
+            + (0 if bsf0 is None else 4 * Q)
+            + (0 if leaf_valid is None else L) + (8 * Q if trace else 0))
 
 
 def _thr(bsf: float, ub: float) -> float:
@@ -182,14 +217,14 @@ class _Row:
     values planted here), and the bsf the producers see."""
 
     def __init__(self, k: int, kk: int, chunk: int, capacity: int,
-                 ub: float = _INF):
-        self.td, self.ti = [_INF] * k, [-1] * k
+                 ub: float = _INF, seed: float = _INF):
+        self.td, self.ti = [seed] + [_INF] * (k - 1), [-1] * k
         self.kk, self.chunk, self.cap, self.ub = kk, chunk, capacity, ub
         slots = [(-_INF, -2)] * kk
         self.ring = [(0.0, 0.0, 0.0, 0, slots)] * capacity
         self.head = self.tail = 0
         self.plb = self.pf = self.box = self.seed = self.walked = 0
-        self.published = _INF
+        self.published = self.td[-1]
 
     def merge(self, slots) -> None:
         """A searched leaf's slots, in slot order, each entering while it
@@ -250,7 +285,9 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
                    bsf_ub: Optional[torch.Tensor] = None,
                    trace: bool = False, chunk: int = CHUNK,
                    lag: int = 0, capacity: int = RING,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None,
+                   bsf0: Optional[torch.Tensor] = None,
+                   leaf_valid: Optional[torch.Tensor] = None):
     """:func:`replay_cascade` as the kernel computes it.
 
     The producers take the row ``chunk`` positions at a time, in visit
@@ -272,7 +309,10 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     −inf and a searched leaf's slots are read from ``leaf_d``.  The
     walker's steps are :meth:`_Row.step`.  ``stats``, where given, gets
     per row the ring's entries (``"entries"``) and the leaves the walker
-    merged (``"walked"``).
+    merged (``"walked"``).  The seed ``bsf0`` starts the walker's top-k
+    (:func:`seeded_topk`) and so the bsf the producers first see; an
+    invalid leaf (``leaf_valid``) is dropped by the producers, counted as
+    lb-pruned and box.
     """
     if capacity < chunk:
         raise ValueError(f"a ring of {capacity} entries cannot take a "
@@ -281,11 +321,14 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
     topk_d, topk_i = init_topk(Q, k, leaf_d.device)
     counts = torch.zeros((4, Q), dtype=torch.int32)
     ubs = [_INF] * Q if bsf_ub is None else bsf_ub.tolist()
+    seeds = [_INF] * Q if bsf0 is None else bsf0.tolist()
+    valid = ([True] * L if leaf_valid is None
+             else leaf_valid.to(torch.bool).tolist())
     for r in range(Q):
         vals, ids = leaf_d[r].tolist(), leaf_i[r].tolist()
         leaves = [list(zip(v, i)) for v, i in zip(vals, ids)]
         lbs, fs = d_lb[r].tolist(), d_F[r].tolist()
-        row = _Row(k, kk, chunk, capacity, ubs[r])
+        row = _Row(k, kk, chunk, capacity, ubs[r], seeds[r])
         ends, dropped = [], 0
         for c, p0 in enumerate(range(0, L, chunk)):
             if c - 1 - lag >= 0:
@@ -296,7 +339,7 @@ def replay_chunked(leaf_d: torch.Tensor, leaf_i: torch.Tensor,
             entries = []
             for o in order[r, p0:p0 + chunk].tolist():
                 lb, f = lbs[o], fs[o]
-                if lb > thr and (not trace or lb > stale):
+                if not valid[o] or lb > thr and (not trace or lb > stale):
                     dropped += 1
                     continue
                 if lb > thr:                  # traced: lb-pruned for certain

@@ -24,20 +24,36 @@ ends in ``.prom``); ``--trace-dump PATH`` a Chrome trace of the run's
 spans and batches; ``--explain RID`` prints one request's
 bound-attribution report.
 
-Not here yet: ``--dist`` (the leaf-sharded search, ROADMAP A8) and the
-token-model archs (the LM substrate, ROADMAP A10); both exit with a
-message.
+The leaf-sharded search, one process a rank::
+
+    PYTHONPATH=src torchrun --nproc-per-node=N -m repro_torch.launch.serve \
+        --arch leafi --dist --backend nccl --ckpt DIR --k 1
+
+Rank r shards onto ``cuda:(r % device_count)``: one card a rank under
+``nccl``; several ranks on one card need ``--backend gloo`` (NCCL refuses
+two ranks on one device, and the backend is never switched for the
+caller).  Rank 0 serves as above, then re-serves the same trace through a
+:class:`~repro_torch.serving.session.DistributedExecutor` on a 1 × N mesh
+(with ``--k 1``) and compares the two shard strategies on one batch; the
+other ranks load the index from ``--ckpt`` (which N > 1 needs) and follow.
+Only rank 0 prints.  Without ``torchrun`` (no ``RANK`` in the
+environment) ``--dist`` runs a world of one rank.
+
+Not here yet: the token-model archs (the LM substrate, ROADMAP A10); they
+exit with a message.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import tempfile
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _print_serve_report(report: dict, label: str = "") -> None:
@@ -60,9 +76,12 @@ def _print_serve_report(report: dict, label: str = "") -> None:
               f"(n={rec['n']})")
 
 
-def serve_leafi(args) -> dict:
+def serve_leafi(args, mesh=None) -> dict:
     """Open-loop micro-batched serving over the LeaFi engine; returns the
-    serve report."""
+    serve report.  With ``mesh`` (``--dist``, on rank 0) the other ranks
+    wait for the checkpoint, and the trace is then served again through
+    the leaf-sharded search (:func:`serve_leafi_dist_trace`, under the
+    report's ``"dist"``)."""
     from ..core import build, filter_training
     from ..core.summaries import znormalize
     from ..kernels.common import resolve_device
@@ -106,6 +125,8 @@ def serve_leafi(args) -> dict:
             session.save(args.ckpt)
             print(f"checkpointed index to {args.ckpt} "
                   f"(next start is a cold start)")
+    if mesh is not None:
+        dist.barrier()                 # the other ranks may load it now
 
     idx = session.lfi.index
     rng = np.random.default_rng(args.seed + 1)
@@ -180,6 +201,16 @@ def serve_leafi(args) -> dict:
                             k=r.k, rid=r.rid)
         print(obs_explain.render_text(ctx))
 
+    if mesh is not None:
+        if args.k == 1:
+            report["dist"] = serve_leafi_dist_trace(session.lfi, trace, args,
+                                                    oracle, mesh)
+        else:
+            print("(--dist trace serving needs --k 1; the distributed "
+                  "exchange reduces a single nn distance)")
+        serve_leafi_distributed(session.lfi, mesh, args,
+                                pool[:args.batch], session.telemetry)
+
     if args.summary:
         print("telemetry summary:")
         print(json.dumps(session.telemetry.summary(), indent=2,
@@ -199,6 +230,142 @@ def serve_leafi(args) -> dict:
         print(f"chrome trace dumped to {args.trace_dump} "
               f"(open in https://ui.perfetto.dev)")
     return report
+
+
+def serve_leafi_dist_trace(lfi, trace, args, oracle, mesh) -> dict:
+    """On rank 0: serve the same open-loop trace through a
+    :class:`~repro_torch.serving.session.DistributedExecutor` over
+    ``mesh`` (per-query conformal offset rows through the sharded search;
+    pipelined when ``--pipeline``), the other ranks following; returns
+    the report."""
+    from ..serving import DistributedExecutor, MicroBatcher, ServingSession
+    executor = DistributedExecutor(lfi, mesh, strategy=args.strategy,
+                                   device=args.device)
+    session = ServingSession(lfi, strategy=args.strategy,
+                             warm_start=args.warm_start, executor=executor,
+                             device=executor.device)
+    targets = tuple(float(t) for t in args.targets.split(","))
+    try:
+        session.warmup(max_batch=args.batch, ks=(1,), targets=targets)
+        service_time = None
+        if args.pipeline:
+            q = lfi.index.series[:args.batch].cpu().numpy()
+            t = np.asarray(targets)[np.arange(args.batch) % len(targets)]
+            t0 = time.perf_counter()
+            session._search_async(q, t, 1).synchronize().result()
+            model_s = time.perf_counter() - t0
+            service_time = lambda b: model_s * max(b.bucket / args.batch, 0.25)  # noqa: E731
+        report = session.serve(
+            trace, batcher=MicroBatcher(max_batch=args.batch,
+                                        max_wait=args.max_wait_ms / 1e3),
+            recall_oracle=oracle, service_time=service_time,
+            pipeline=args.pipeline)
+    finally:
+        executor.close()
+    _print_serve_report(report, label=f"dist x{mesh.size()}")
+    return report
+
+
+def serve_leafi_distributed(lfi, mesh, args, q: Optional[np.ndarray] = None,
+                            telemetry=None) -> None:
+    """On every rank: one batch of 1-NN queries (rank 0's ``q``,
+    broadcast) through the sharded search with each shard strategy, the
+    masked scan and the survivor compaction, timed (rank 0 prints).  The
+    compaction's capacity is rank 0's telemetry's suggestion where it has
+    observed survivors (counted on the unsharded leaves, so generous),
+    else the static default."""
+    from ..core import distributed, engine
+    from ..kernels.common import resolve_device
+    dev = resolve_device(args.device)
+    sharded = distributed.shard_leafi(lfi, mesh.shape[1], device=dev)
+    P = sharded.leaf_size.shape[1]
+    lead = dist.get_rank() == 0
+    head = torch.zeros(2, dtype=torch.int64, device=dev)
+    if lead:
+        head[0] = q.shape[0]
+        if telemetry is not None and telemetry.survivors:
+            head[1] = telemetry.suggest_max_survivors(P)
+    dist.broadcast(head, src=0)
+    B, tuned = (int(x) for x in head.tolist())
+    qt = (torch.as_tensor(q, dtype=torch.float32, device=dev) if lead
+          else torch.empty((B, lfi.index.length), device=dev))
+    dist.broadcast(qt, src=0)
+    if lead:
+        print(f"distributed serve: {mesh.size()} shard(s), {P} leaf "
+              "slots/shard" + (
+                  f", max_survivors {tuned} (telemetry-tuned; static "
+                  f"default {engine.default_max_survivors(P)})" if tuned
+                  else ""))
+    for strategy in ("scan", "compact"):
+        run = distributed.make_distributed_search(
+            mesh, sharded, strategy=strategy,
+            max_survivors=tuned if strategy == "compact" and tuned else None,
+            device=dev)
+        run(qt)                                    # warm
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        nn, total = run(qt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        if lead:
+            print(f"serve[dist/{strategy:7s}] {B} queries 1-NN: "
+                  f"{dt*1e3:.1f}ms  total searched "
+                  f"{total.float().mean().item():.1f} leaves/query")
+
+
+def _follow_dist(args, mesh) -> None:
+    """A rank other than 0 under ``--dist``: once rank 0 has its index
+    checkpointed, load it on the host, follow its distributed trace, then
+    the strategy comparison."""
+    from ..serving import DistributedExecutor
+    from ..serving.session import load_index
+    dist.barrier()
+    lfi = load_index(args.ckpt, device="cpu")
+    if args.k == 1:
+        DistributedExecutor(lfi, mesh, strategy=args.strategy,
+                            device=args.device).follow()
+    serve_leafi_distributed(lfi, mesh, args)
+
+
+def serve_dist(args) -> Optional[dict]:
+    """``--dist``: join the running process group, or start one (from
+    ``torchrun``'s environment, else a world of one rank through a
+    ``file://`` store in a temporary directory), make a 1 × N mesh over its
+    ranks and serve (rank 0) or follow (the rest); returns rank 0's
+    report.  A group it started it also destroys."""
+    from ..core import distributed
+    from ..launch.mesh import make_host_mesh
+    started = not dist.is_initialized()
+    with tempfile.TemporaryDirectory() as tmp:
+        if started:
+            if "RANK" in os.environ:
+                rank = int(os.environ["RANK"])
+                world = int(os.environ["WORLD_SIZE"])
+                init = "env://"
+            else:
+                rank, world, init = 0, 1, "file://" + os.path.join(tmp,
+                                                                   "store")
+            if args.device != "cpu":
+                local = int(os.environ.get("LOCAL_RANK", rank))
+                torch.cuda.set_device(local % max(torch.cuda.device_count(),
+                                                  1))
+            distributed.init_process_group(args.backend, rank, world, init)
+        try:
+            if dist.get_world_size() > 1 and not args.ckpt:
+                raise SystemExit("--dist over several ranks needs --ckpt: "
+                                 "the other ranks load rank 0's index from "
+                                 "it")
+            mesh = make_host_mesh(model=dist.get_world_size(),
+                                  device=args.device)
+            if dist.get_rank() == 0:
+                return serve_leafi(args, mesh=mesh)
+            _follow_dist(args, mesh)
+            return None
+        finally:
+            if started:
+                dist.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
@@ -226,8 +393,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
                     help="index checkpoint dir: loads if present, "
                          "else builds and saves (--arch leafi)")
     ap.add_argument("--dist", action="store_true",
-                    help="the sharded search path: not in the port yet "
-                         "(ROADMAP A8)")
+                    help="also serve through the leaf-sharded search, one "
+                         "rank a process (launch with torchrun "
+                         "--nproc-per-node=N; with --k 1 the full trace is "
+                         "re-served through the distributed executor)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="--dist's torch.distributed backend: nccl for one "
+                         "card a rank, gloo for the CPU or for several "
+                         "ranks on one card")
     ap.add_argument("--pipeline", type=int, default=0,
                     help="pipelined serving depth (batches in flight; "
                          "0 = serial; --arch leafi)")
@@ -266,8 +439,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
             f"--arch {args.arch}: the port serves --arch leafi only; the "
             "token-model archs wait for the LM substrate (ROADMAP A10)")
     if args.dist:
-        raise SystemExit("--dist: the leaf-sharded search is not in the "
-                         "port yet (ROADMAP A8)")
+        return serve_dist(args)
     return serve_leafi(args)
 
 

@@ -9,14 +9,12 @@ Public API:
     BsfCache                               cross-batch bsf warm-starting
     Telemetry, latency_percentiles         rolling serving counters
     ShadowSampler, explain_query           sampled exact-scan audit + explain
-
-The reference's ``DistributedExecutor`` (micro-batches through the
-multi-chip search) waits for the port's distributed search.
+    DistributedExecutor                    micro-batches → leaf-sharded search
 """
 from .batcher import (MicroBatch, MicroBatcher, Request,  # noqa: F401
                       poisson_trace, run_trace, run_trace_pipelined)
-from .session import (PendingBatch, ServingSession,       # noqa: F401
-                      load_index, save_index)
+from .session import (DistributedExecutor, PendingBatch,  # noqa: F401
+                      ServingSession, load_index, save_index)
 from .shadow import ShadowSampler, explain_query          # noqa: F401
 from .telemetry import Telemetry, latency_percentiles     # noqa: F401
 from .warmstart import BsfCache                           # noqa: F401

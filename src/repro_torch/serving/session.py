@@ -30,8 +30,10 @@ N+1's host-side formation and dispatch overlap batch N's device work.
 Cross-batch **bsf warm-starting** (``warm_start=True``) seeds each batch
 with prune-only upper bounds derived from recently answered queries
 (:mod:`repro_torch.serving.warmstart`); the replay then runs its bound
-instance.  Every entry point runs on the card unless the caller passes
-``device="cpu"``.
+instance.  :class:`DistributedExecutor` routes the same micro-batches
+through the leaf-sharded search (``core/distributed.py``) with per-query
+conformal offset rows.  Every entry point runs on the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import bridge, checkpoint
 from ..core import build, conformal, search
@@ -162,10 +165,167 @@ def _pow2_buckets(max_batch: int) -> List[int]:
     return [1 << i for i in range(_pow2_floor(max_batch).bit_length())]
 
 
+# ---------------------------------------------------------------------------
+# distributed execution backend (the leaf-sharded search)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _DistResult:
+    """SearchResult-shaped view of the distributed exchange's outputs.
+
+    The exchange reduces one nearest distance and a summed searched-leaf
+    count per query; per-leaf prune attribution and series ids stay
+    shard-local, so those fields are absent here.
+    """
+    dists: np.ndarray            # (Q, 1)
+    searched: np.ndarray         # (Q,)
+    n_leaves: int
+    computed: Optional[np.ndarray] = None
+    ids: Optional[np.ndarray] = None
+    audit: Optional[dict] = None
+
+
+@dataclasses.dataclass
+class _PendingDist:
+    """A distributed batch whose answers are on the device until
+    :meth:`result` copies them."""
+    nn: torch.Tensor
+    n_searched: torch.Tensor
+    n_leaves: int
+
+    def synchronize(self) -> "_PendingDist":
+        if self.nn.device.type == "cuda":
+            torch.cuda.synchronize(self.nn.device)
+        return self
+
+    def result(self) -> _DistResult:
+        return _DistResult(dists=self.nn.cpu().numpy()[:, None],
+                           searched=self.n_searched.cpu().numpy(),
+                           n_leaves=self.n_leaves)
+
+
+#: the leader's broadcast header: (op, rows); op 0 stops the followers
+_STOP, _SEARCH = 0, 1
+
+
+class DistributedExecutor:
+    """Routes serving micro-batches through the leaf-sharded search.
+
+    Every rank of ``mesh`` (one process each) builds one: it shards the
+    index (:func:`repro_torch.core.distributed.shard_leafi`) and puts its
+    own shard on its device (``make_distributed_search`` with
+    ``per_query_offsets=True``): each query carries its own (L,) conformal
+    offset row (mixed quality targets in one call) and a (Q,) prune-only
+    ``bsf_ub`` warm bound.  k = 1 only: the exchange reduces one nearest
+    distance per query.
+
+    The reference drives every device from one process.  Here one process
+    a rank would form batches by its own measured clock, so the ranks
+    would disagree on the batches and their collectives deadlock: rank 0
+    leads.  Its session dispatches, and :meth:`dispatch` broadcasts the
+    batch (its row count, then the queries, the (B, L) offset rows and
+    ``bsf_ub``) to the other ranks, which run :meth:`follow` and search
+    the same batch until rank 0's :meth:`close`.  The mesh must cover the
+    whole process group.  ``device=None`` means this rank's card.  The
+    reference's ``donate`` has no eager counterpart and is not taken.
+    """
+
+    def __init__(self, lfi: build.LeaFiIndex, mesh, *,
+                 strategy: str = "compact",
+                 max_survivors: Optional[int] = None,
+                 dist_impl: Optional[str] = None, device: Device = None):
+        from ..core import distributed
+        self.device = resolve_device(device)
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                             f"{dist.get_world_size()}")
+        self.lfi = lfi
+        self.n_leaves = lfi.index.n_leaves
+        self.length = lfi.index.length
+        self.sharded = distributed.shard_leafi(lfi, mesh.shape[1],
+                                               device=self.device)
+        self.run = distributed.make_distributed_search(
+            mesh, self.sharded, strategy=strategy,
+            max_survivors=max_survivors, dist_impl=dist_impl,
+            per_query_offsets=True, device=self.device)
+        self.leader = dist.get_rank() == 0
+
+    def _offset_rows(self, targets, B: int) -> np.ndarray:
+        """Per-query (B, L) conformal offset rows; +inf rows ⇒ exact search.
+
+        ``d_F = pred − offset``, so a +inf offset drives every filter bound
+        to −inf: the filters never fire and the search answers exactly.
+        """
+        L = self.n_leaves
+        if targets is None:
+            return np.full((B, L), np.inf, np.float32)
+        if self.lfi.tuner is None:
+            return np.zeros((B, L), np.float32)
+        off = conformal.scatter_offsets(
+            self.lfi.tuner, self.lfi.leaf_ids, L,
+            np.asarray(targets, np.float64))
+        return np.asarray(off, np.float32).reshape(B, L)
+
+    def _broadcast(self, op: int, *arrays) -> list:
+        """The header (op, rows), then each array, from rank 0; returns
+        the arrays as this rank's tensors (received on the followers)."""
+        dev = self.device
+        head = torch.tensor([op, arrays[0].shape[0] if arrays else 0],
+                            dtype=torch.int64, device=dev)
+        dist.broadcast(head, src=0)
+        out = []
+        for a in arrays:
+            t = torch.as_tensor(a, dtype=torch.float32, device=dev)
+            dist.broadcast(t, src=0)
+            out.append(t)
+        return out
+
+    def dispatch(self, queries: np.ndarray, targets, k: int,
+                 bsf_ub: Optional[np.ndarray] = None) -> _PendingDist:
+        """One batch, on rank 0: broadcast it, then search it with the
+        followers."""
+        if int(k) != 1:
+            raise ValueError("DistributedExecutor serves k=1 only "
+                             f"(got k={k})")
+        if not self.leader:
+            raise RuntimeError("only rank 0 dispatches; the other ranks "
+                               "follow")
+        q = np.asarray(queries, np.float32)
+        ub = (np.full(q.shape[0], np.inf, np.float32) if bsf_ub is None
+              else np.asarray(bsf_ub, np.float32))
+        args = self._broadcast(_SEARCH, q, self._offset_rows(targets,
+                                                             q.shape[0]), ub)
+        nn, n_s = self.run(*args)
+        return _PendingDist(nn=nn, n_searched=n_s, n_leaves=self.n_leaves)
+
+    def follow(self) -> int:
+        """On a rank other than 0: search every batch rank 0 broadcasts,
+        until it closes; returns the number of batches."""
+        dev, n = self.device, 0
+        while True:
+            head = torch.empty(2, dtype=torch.int64, device=dev)
+            dist.broadcast(head, src=0)
+            op, B = (int(x) for x in head.tolist())
+            if op == _STOP:
+                return n
+            args = []
+            for shape in ((B, self.length), (B, self.n_leaves), (B,)):
+                t = torch.empty(shape, dtype=torch.float32, device=dev)
+                dist.broadcast(t, src=0)
+                args.append(t)
+            self.run(*args)
+            n += 1
+
+    def close(self) -> None:
+        """On rank 0: release the followers from :meth:`follow`."""
+        self._broadcast(_STOP)
+
+
 @dataclasses.dataclass
 class PendingBatch:
     """One dispatched micro-batch awaiting harvest (FIFO, seq-ordered)."""
-    pending: search.PendingSearch
+    pending: object               # search.PendingSearch | _PendingDist
     batch: MicroBatch
     seq: int
     # warm-start seed the batch was dispatched with (None when cold/off);
@@ -194,6 +354,12 @@ class ServingSession:
     off-critical-path exact-scan auditing (``serve`` drains it once per
     trace).  ``device=None`` means the card; the index must live on the
     session's device.
+
+    ``executor`` swaps the single-host engine for a
+    :class:`DistributedExecutor` (k = 1; on rank 0): batches flow through
+    the leaf-sharded search with per-query conformal offset rows.  Audit
+    is then off: the exchange reduces one distance, so there is nothing
+    leaf-wise to fold on the host.
     """
 
     def __init__(self, lfi: build.LeaFiIndex, *, strategy: str = "compact",
@@ -202,6 +368,7 @@ class ServingSession:
                  warm_start: bool = False, warm_lag: int = 1,
                  warm_capacity: int = 256, audit: bool = False,
                  shadow_rate: float = 0.0, shadow_seed: int = 0,
+                 executor: Optional[DistributedExecutor] = None,
                  device: Device = None):
         self.device = resolve_device(device)
         self.lfi = lfi
@@ -211,7 +378,8 @@ class ServingSession:
         self.warm_start = bool(warm_start)
         self.warm_lag = int(warm_lag)
         self.warm_cache = BsfCache(capacity=warm_capacity)
-        self.audit = bool(audit)
+        self.executor = executor
+        self.audit = bool(audit) and executor is None
         self.shadow = None
         if shadow_rate > 0.0:
             from .shadow import ShadowSampler
@@ -262,10 +430,12 @@ class ServingSession:
     # -- execution ----------------------------------------------------------
 
     def _search_async(self, queries: np.ndarray, targets, k: int,
-                      bsf_ub: Optional[np.ndarray] = None
-                      ) -> search.PendingSearch:
-        """Dispatch one batch through the engine (``.result()`` blocks),
+                      bsf_ub: Optional[np.ndarray] = None):
+        """Dispatch one batch (``.result()`` blocks): through the
+        distributed executor where one is attached, else the engine with
         per-query targets lowered to (B, F) offset rows."""
+        if self.executor is not None:
+            return self.executor.dispatch(queries, targets, k, bsf_ub)
         lfi = self.lfi
         return search.search_batched_async(
             lfi.index, queries, k=k, filter_params=lfi.filter_params,
@@ -325,7 +495,7 @@ class ServingSession:
         return PendingBatch(pending=pending, batch=batch, seq=seq,
                             bsf_ub=bsf_ub)
 
-    def harvest(self, pb: PendingBatch) -> search.SearchResult:
+    def harvest(self, pb: PendingBatch):
         """Wait for one dispatched batch; fold telemetry + warm staging.
 
         The ``serve.harvest`` span encloses the wait on the card and the

@@ -109,19 +109,31 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "leafi", "--ckpt", str(tmp_path / "idx"),
                     "--requests", "4"])
+    from repro_torch.core import distributed
+    from repro_torch.serving import DistributedExecutor
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.shard_leafi(lfi, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.make_search_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.make_distributed_search(None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedExecutor(lfi, None)
     # asked for the CPU, the same calls run
     assert lfi.search(S[:2], device="cpu").ids.shape == (2, 1)
     assert load_index(str(tmp_path / "idx"), device="cpu").index.n_series \
         == lfi.index.n_series
     assert ServingSession(lfi, device="cpu").search_exact(S[:2]).ids.shape \
         == (2, 1)
+    assert distributed.shard_leafi(lfi, 2, device="cpu").n_shards == 2
 
 
 def test_serve_entry_point_cold_starts_on_the_cpu(tmp_path, capsys):
     """``launch.serve.main`` with ``--device cpu`` cold-starts from a small
     checkpoint written by the JAX package (a DSTree index without filters)
-    and answers every request of its trace; the LM archs and ``--dist``
-    exit naming the ROADMAP items they wait for."""
+    and answers every request of its trace; ``--dist`` (gloo, a world of
+    one rank without ``torchrun``) serves it again through the sharded
+    search; the LM archs exit naming the ROADMAP item they wait for."""
     from repro.core import build as ref_build
     from repro.core import tree as ref_tree
     from repro.serving import save_index as ref_save_index
@@ -148,8 +160,14 @@ def test_serve_entry_point_cold_starts_on_the_cpu(tmp_path, capsys):
         serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
     with pytest.raises(SystemExit, match="ROADMAP A10"):
         serve.main([])
-    with pytest.raises(SystemExit, match="ROADMAP A8"):
-        serve.main(["--arch", "leafi", "--dist", "--device", "cpu"])
+    report = serve.main(["--arch", "leafi", "--dist", "--backend", "gloo",
+                         "--device", "cpu", "--ckpt", ckpt, "--k", "1",
+                         "--requests", "16", "--batch", "8", "--rate",
+                         "400"])
+    assert report["n_requests"] == report["dist"]["n_requests"] == 16
+    printed = capsys.readouterr().out
+    assert "served [dist x1] 16 requests in" in printed
+    assert "serve[dist/compact]" in printed
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -316,7 +334,7 @@ def test_chip_smoke_wide_dstree_and_training_profile_on_cpu(capsys):
 
 def test_new_modules_are_checked():
     """The import checks above reach the port's analysis, bench, obs,
-    checkpoint, serving and launch modules."""
+    checkpoint, serving and launch modules, and the distributed search."""
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in
              p.parents}
     for mod in ("analysis/roofline.py", "bench/filters_bench.py",
@@ -337,7 +355,7 @@ def test_new_modules_are_checked():
                 "serving/batcher.py", "serving/session.py",
                 "serving/shadow.py", "serving/telemetry.py",
                 "serving/warmstart.py", "launch/__init__.py",
-                "launch/serve.py"):
+                "launch/serve.py", "launch/mesh.py", "core/distributed.py"):
         assert mod in names
 
 
@@ -361,16 +379,15 @@ def test_spans_pass_through_is_torch_not_jax():
 
 def test_serving_exports_the_references_names():
     """``repro_torch.serving`` exports every name the reference's
-    ``repro.serving`` imports into its package, except
-    ``DistributedExecutor``, which waits for the distributed search."""
+    ``repro.serving`` imports into its package, ``DistributedExecutor``
+    too."""
     from repro_torch import serving
     ref = REPO / "src" / "repro" / "serving" / "__init__.py"
     names = {a.asname or a.name for node in ast.parse(ref.read_text()).body
              if isinstance(node, ast.ImportFrom) for a in node.names}
     assert "DistributedExecutor" in names
-    for name in names - {"DistributedExecutor"}:
+    for name in names:
         assert hasattr(serving, name), name
-    assert not hasattr(serving, "DistributedExecutor")
 
 
 def test_chip_smoke_bounds_use_the_roofline_module():

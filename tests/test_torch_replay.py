@@ -361,7 +361,9 @@ def test_engine_replay_runs_the_plain_loop_on_the_cpu():
     _assert_bitwise([g.numpy() for g in got], [w.numpy() for w in want])
     assert replay_kernel.LAUNCHES == before == {"replay": 0}
     assert replay_kernel.MODE_LAUNCHES == {"plain": 0, "bound": 0,
-                                           "traced": 0}
+                                           "traced": 0, "seeded": 0,
+                                           "seeded+bound": 0,
+                                           "seeded+traced": 0}
 
 
 def test_calibration_replay_matches_reference_loop():
@@ -421,25 +423,29 @@ def test_kernel_wrapper_checks_before_it_builds():
 
 
 def test_c_entry_matches_the_binding():
-    """One C entry, ``replay``, with the binding's 19 arguments (the bound
-    after the order, the trace's two counters after the three); the source
+    """One C entry, ``replay``, with the binding's 21 arguments (the bound,
+    the seed and the validity mask after the order, the trace's two
+    counters after the three); the source
     names what it replaces; the walker's step is the emulation's chunk, the
     ring's capacity and an entry's slots are the emulation's, the launch
     is a block a row (256 blocks at a batch's 256 rows: every SM of an
     H100's 132 holds one), ``kernel.instance`` names the instance the C
     entry picks by k and kk, and ``kernel.mode`` the plain, bound or
-    traced one it picks by the pointers it is given."""
+    traced one it picks by the pointers it is given (each also seeded:
+    ``tests/test_torch_dist_engine.py``)."""
     text = (common.CSRC / "replay.cu").read_text()
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
     assert [name for name, _ in entries] == ["replay"]
     params = [p.split()[-1].strip("*") for p in entries[0][1].split(",")]
-    assert len(params) == len(replay_kernel._SIGNATURES["replay"]) == 19
-    assert params[6] == "bsf_ub" and params[12:14] == ["n_box", "n_seed"]
+    assert len(params) == len(replay_kernel._SIGNATURES["replay"]) == 21
+    assert params[6] == "bsf_ub" and params[14:16] == ["n_box", "n_seed"]
     sig = replay_kernel._SIGNATURES["replay"]
-    assert sig[6] is ctypes.c_void_p and sig[12:14] == [ctypes.c_void_p] * 2
-    assert "if (a.box) return launch_mode<REG, NS, TRACED>(a, st);" in text
-    assert "if (a.ub) return launch_mode<REG, NS, BOUND>(a, st);" in text
-    assert "return launch_mode<REG, NS, PLAIN>(a, st);" in text
+    assert sig[6] is ctypes.c_void_p and sig[14:16] == [ctypes.c_void_p] * 2
+    assert "if (a.box) return launch_mode<REG, NS, TRACED, SEED>(a, st);" \
+        in text
+    assert "if (a.ub) return launch_mode<REG, NS, BOUND, SEED>(a, st);" \
+        in text
+    assert "return launch_mode<REG, NS, PLAIN, SEED>(a, st);" in text
     assert "constexpr int PLAIN = 0, BOUND = 1, TRACED = 2;" in text
     assert 'asm("min.NaN.f32' in text
     assert "src/repro/core/engine.py:307" in text
@@ -450,9 +456,9 @@ def test_c_entry_matches_the_binding():
     assert "kern<<<a.Q, THREADS, smem, st>>>" in text
     assert re.search(rf"constexpr int REG_MAX_K = "
                      rf"{replay_kernel.REG_MAX_K};", text)
-    assert "if (a.kk <= 1) return launch<REG, 1>(a, st);" in text
-    assert "if (a.kk <= PRE) return launch<REG, PRE>(a, st);" in text
-    assert "k <= REG_MAX_K ? launch_kk<true>(a, st)" in text
+    assert "if (a.kk <= 1) return launch<REG, 1, SEED>(a, st);" in text
+    assert "if (a.kk <= PRE) return launch<REG, PRE, SEED>(a, st);" in text
+    assert "k <= REG_MAX_K ? launch_seed<true>(a, st)" in text
     assert [replay_kernel.instance(kk, k) for kk, k in
             ((1, 1), (5, 32), (8, 33), (9, 5))] == [
         "top-k in registers; leaf slots a ring entry: 1",
@@ -609,9 +615,10 @@ def test_chip_smoke_capture_keeps_bound_calls_when_asked(monkeypatch):
 
 
 def test_replay_layouts_reads_either_entry(tmp_path):
-    """``bench/replay_layouts.py`` binds the product's 19-argument entry and
-    an older source's 16-argument one (no bound, no trace counters), and
-    refuses any other."""
+    """``bench/replay_layouts.py`` binds the product's 21-argument entry,
+    the 19-argument one before the seed and the mask, and an older
+    source's 16-argument one (no bound, no trace counters), and refuses
+    any other."""
     from repro_torch.bench import replay_layouts
     text = (common.CSRC / "replay.cu").read_text()
     assert replay_layouts._signature(common.CSRC / "replay.cu") \
@@ -625,7 +632,13 @@ def test_replay_layouts_reads_either_entry(tmp_path):
         '    void* stream) {}\n')
     assert replay_layouts._signature(old) == replay_layouts._OLD_SIGNATURE
     assert len(replay_layouts._OLD_SIGNATURE) == 16
+    unseeded = tmp_path / "unseeded.cu"
+    unseeded.write_text(text.replace(
+        "const void* bsf0, const void* leaf_valid,\n", ""))
+    assert replay_layouts._signature(unseeded) \
+        == replay_layouts._UNSEEDED_SIGNATURE
+    assert len(replay_layouts._UNSEEDED_SIGNATURE) == 19
     bad = tmp_path / "bad.cu"
     bad.write_text(text.replace("void* stream)", "int extra, void* stream)"))
-    with pytest.raises(ValueError, match="20 arguments"):
+    with pytest.raises(ValueError, match="22 arguments"):
         replay_layouts._signature(bad)
